@@ -49,7 +49,7 @@ def read_png(path):
 def test_port_never_imports_jax():
     code = (
         "import sys, volym_tpu_torch, volym_tpu_torch.cli, volym_tpu_torch.convert, "
-        "volym_tpu_torch.parity, volym_tpu_torch.io, volym_tpu_torch.ops.slab_march, "
+        "volym_tpu_torch.parity, volym_tpu_torch.io, volym_tpu_torch.ops.slab_march, volym_tpu_torch.ops.slab_replay, "
         "volym_tpu_torch.ops._build, volym_tpu_torch.render.renderer\n"
         "volym_tpu_torch.cli.build_parser().parse_args(['screenshot'])\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
@@ -104,8 +104,30 @@ def test_renderer_unported_modes_raise(kw):
 
 
 def test_renderer_differentiable_raises():
-    with pytest.raises(NotImplementedError):
-        make_renderer(Scene.synthetic("sphere", side=8), BASE, 8, 8, backend="slab", device="cpu", differentiable=True)
+    """The differentiable render has no camera gradients yet: the default
+    ``camera_grads=True`` raises, naming the mode, as do the unported
+    render modes."""
+    scene = Scene.synthetic("sphere", side=8)
+    with pytest.raises(NotImplementedError, match="camera gradients"):
+        make_renderer(scene, BASE, 8, 8, backend="slab", device="cpu", differentiable=True)
+    with pytest.raises(NotImplementedError, match="camera gradients"):
+        slab_march.render_diff(scene, Camera().matrices(), BASE, 8, 8)
+    diff = BASE.replace(camera_grads=False)
+    for kw, name in ((dict(use_gaussian_smoothing=True), "smoothing"), (dict(use_importance_coloring=True), "coloring"),
+                     (dict(use_importance_rendering=True), "look-ahead"), (dict(use_opacity=False), "first-hit")):
+        with pytest.raises(NotImplementedError, match=name):
+            make_renderer(scene, diff.replace(**kw), 8, 8, backend="slab", device="cpu", differentiable=True)
+
+
+def test_renderer_differentiable_renders_on_cpu():
+    scene = Scene.synthetic("sphere", side=8)
+    vol = scene.volume.clone().requires_grad_(True)
+    p = BASE.replace(camera_grads=False, raymarching_step_size=1.0 / 8)
+    render = make_renderer(Scene(vol, scene.importance, scene.tf_lut), p, 8, 8, backend="slab", device="cpu",
+                           differentiable=True)
+    img = render(Camera().orbit(20.0, 10.0, 0.0).matrices())
+    img.sum().backward()
+    assert tuple(vol.grad.shape) == (8, 8, 8) and float(vol.grad.abs().max()) > 0
 
 
 def test_slab_cuda_without_cuda_raises():

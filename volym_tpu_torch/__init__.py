@@ -1,9 +1,11 @@
 """volym_tpu_torch — the PyTorch + CUDA port of volym_tpu for NVIDIA Hopper.
 
 A second package beside :mod:`volym_tpu`, with the same module names.  It
-imports torch and numpy, never jax.  This slice renders forward: the slab
-march in its base and Blinn-Phong shading modes, with a hand-written CUDA
-kernel (``ops/csrc/slab_march.cu``) and its plain PyTorch version.
+imports torch and numpy, never jax.  It renders with the slab march in its
+base and Blinn-Phong shading modes, and differentiates that render for the
+volume and the TF LUT (no camera gradients yet), with hand-written CUDA
+kernels (``ops/csrc/slab_march.cu``, ``ops/csrc/slab_replay.cu``) and their
+plain PyTorch versions.
 """
 
 from volym_tpu_torch.camera import Camera, CameraMatrices, camera_matrices

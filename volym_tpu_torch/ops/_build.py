@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into ``build/kernels/lib<name>_<hash>.so`` at the repository root, then
-loaded with ``ctypes``.  The hash covers the source and the flags, so an
-edited source is rebuilt at its first use and an unchanged one is reused.
+loaded with ``ctypes``.  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt at its
+first use and an unchanged one is reused.
 Nothing is built when the package is imported.
 """
 
@@ -54,7 +55,8 @@ def _nvcc() -> str:
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     if out.exists():
         return Built(out, 0.0, "")

@@ -24,66 +24,36 @@
 // Early exit: t = ts*j+tb is non-decreasing in j when the sign flag holds
 // (ts > 0), and the accumulated alpha never decreases, so breaking on
 // t >= exit or on alpha >= early_alpha skips only samples the mask rejects.
+//
+// Stored-density residual (EMIT, the TPU kernel's emit_density): the kernel
+// also writes, for the replay backward (slab_replay.cu), the density of
+// every step it samples into dens (n, 1, H, W), or (n, 4, H, W) with the
+// gradient-field sample in rows 1..3 when shaded (written only where the
+// density passes the threshold: the field is sampled only there).  Rays
+// fastest, so a warp's stores at one step are coalesced.  Every step the
+// kernel does not sample must read 0.0; the kernel does not write those,
+// the wrapper zero-fills the buffer (torch.zeros, one memset at full
+// bandwidth) before the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "slab_common.cuh"
+
 namespace {
 
-// rows of the per-ray table (volym_tpu_torch/render/slab.py F_*)
-constexpr int F_RS = 0, F_RB = 1, F_CS = 2, F_CB = 3, F_TS = 4, F_TB = 5;
-constexpr int F_ENTRY = 6, F_EXIT = 7, F_AEXP = 8, F_SIGNOK = 9;
-constexpr int F_HX = 10, F_HY = 11, F_HZ = 12;
+using namespace volym_slab;
 
-constexpr int TILE_X = 16, TILE_Y = 16;
-
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-    return fminf(fmaxf(x, lo), hi);
-}
-
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-    return min(max(x, lo), hi);
-}
-
-__device__ __forceinline__ float snap(float c, int bits) {
-    if (bits == 0) return c;
-    const float s = (float)(1 << bits);
-    return floorf(c * s + 0.5f) * (1.0f / s);
-}
-
-template <typename T>
-__device__ __forceinline__ float texel(const T* __restrict__ sl, int idx) {
-    return (float)__ldg(sl + idx);
-}
-
-// one sample of an (nr, nc) slice at snapped texel coordinates, clamp-to-edge
-template <bool BILINEAR, typename T>
-__device__ __forceinline__ float sample(const T* __restrict__ sl, float rows, float cols, int nr, int nc) {
-    if (BILINEAR) {
-        const float r0f = floorf(rows), c0f = floorf(cols);
-        const float tr = rows - r0f, tc = cols - c0f;
-        const int r0 = clampi((int)r0f, 0, nr - 1), r1 = clampi((int)r0f + 1, 0, nr - 1);
-        const int c0 = clampi((int)c0f, 0, nc - 1), c1 = clampi((int)c0f + 1, 0, nc - 1);
-        const float v00 = texel(sl, r0 * nc + c0), v01 = texel(sl, r0 * nc + c1);
-        const float v10 = texel(sl, r1 * nc + c0), v11 = texel(sl, r1 * nc + c1);
-        const float ur = 1.0f - tr, uc = 1.0f - tc;
-        return v00 * ur * uc + v01 * ur * tc + v10 * tr * uc + v11 * tr * tc;
-    } else {
-        const int r = clampi((int)floorf(rows + 0.5f), 0, nr - 1);
-        const int c = clampi((int)floorf(cols + 0.5f), 0, nc - 1);
-        return texel(sl, r * nc + c);
-    }
-}
-
-template <bool BILINEAR, bool U8, bool SHADING>
+template <bool BILINEAR, bool U8, bool SHADING, bool EMIT>
 __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_march_kernel(
     const float* __restrict__ feats,  // (13, H, W)
     const void* __restrict__ vol_,    // (n, nr, nc) uint8 if U8 else float
     const float* __restrict__ grad,   // (3, n, nr, nc) when SHADING
     const float* __restrict__ lut,    // (ln, 4)
     float* __restrict__ out,          // (H, W, 4)
+    float* __restrict__ dens,         // (n, SHADING ? 4 : 1, H, W) when EMIT, zero-filled
     int height, int width, int n, int nr, int nc, int ln, int sign, int subtexel,
     float threshold, float early_alpha, float tf_scale) {
     using T = typename std::conditional<U8, uint8_t, float>::type;
@@ -130,13 +100,14 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_march_kernel(
             const float cols = snap(clampf(cs * jf + cb, 0.0f, cmax), subtexel);
             const size_t k = (size_t)(sign > 0 ? j : n - 1 - j);
             const float density = sample<BILINEAR>(vol + k * slice, rows, cols, nr, nc);
+            float* dj = EMIT ? dens + (size_t)j * (SHADING ? 4 : 1) * n_rays + r : nullptr;
+            if (EMIT) dj[0] = density;
             if (!(density >= threshold)) continue;
 
             // TF: linear filter, texel centres at (i + 0.5) / ln, clamp-to-edge
-            const float c = clampf(density * tf_scale - 0.5f, 0.0f, lmax);
-            const float i0f = floorf(c);
-            const float fr = c - i0f, ufr = 1.0f - fr;
-            const int i0 = (int)i0f, i1 = min(i0 + 1, ln - 1);
+            const TfTexels tx = tf_texels(density, tf_scale, lmax, ln);
+            const int i0 = tx.i0, i1 = tx.i1;
+            const float fr = tx.fr, ufr = tx.ufr;
             float cr = s_lut[i0 * 4 + 0] * ufr + s_lut[i1 * 4 + 0] * fr;
             float cg = s_lut[i0 * 4 + 1] * ufr + s_lut[i1 * 4 + 1] * fr;
             float cbl = s_lut[i0 * 4 + 2] * ufr + s_lut[i1 * 4 + 2] * fr;
@@ -147,6 +118,11 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_march_kernel(
                 const float gx = sample<BILINEAR>(grad + k * slice, rows, cols, nr, nc);
                 const float gy = sample<BILINEAR>(grad + ((size_t)n + k) * slice, rows, cols, nr, nc);
                 const float gz = sample<BILINEAR>(grad + ((size_t)2 * n + k) * slice, rows, cols, nr, nc);
+                if (EMIT) {
+                    dj[n_rays] = gx;
+                    dj[2 * n_rays] = gy;
+                    dj[3 * n_rays] = gz;
+                }
                 const float sq = gx * gx + gy * gy + gz * gz;
                 if (sq > 0.0f) {
                     const float norm = sqrtf(sq);
@@ -173,41 +149,49 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_march_kernel(
     *o = make_float4(acc_r, acc_g, acc_b, acc_a);
 }
 
-template <bool BILINEAR, bool U8, bool SHADING>
+template <bool BILINEAR, bool U8, bool SHADING, bool EMIT>
 void launch(const float* feats, const void* vol, const float* grad, const float* lut, float* out,
-            int height, int width, int n, int nr, int nc, int ln, int sign, int subtexel,
-            float threshold, float early_alpha, float tf_scale, cudaStream_t stream) {
+            float* dens, int height, int width, int n, int nr, int nc, int ln, int sign,
+            int subtexel, float threshold, float early_alpha, float tf_scale, cudaStream_t stream) {
     const dim3 block(TILE_X, TILE_Y);
     const dim3 grid((width + TILE_X - 1) / TILE_X, (height + TILE_Y - 1) / TILE_Y);
     const size_t smem = (size_t)ln * 4 * sizeof(float);
-    slab_march_kernel<BILINEAR, U8, SHADING><<<grid, block, smem, stream>>>(
-        feats, vol, grad, lut, out, height, width, n, nr, nc, ln, sign, subtexel,
+    slab_march_kernel<BILINEAR, U8, SHADING, EMIT><<<grid, block, smem, stream>>>(
+        feats, vol, grad, lut, out, dens, height, width, n, nr, nc, ln, sign, subtexel,
         threshold, early_alpha, tf_scale);
 }
 
 }  // namespace
 
 // C entry for ctypes: launches on `stream` and returns cudaGetLastError().
+// `dens` is NULL unless `emit` is set.
 extern "C" int slab_march_launch(const float* feats, const void* vol, const float* grad,
-                                 const float* lut, float* out, int height, int width, int n,
-                                 int nr, int nc, int ln, int sign, int subtexel, int bilinear,
-                                 int u8, int shading, float threshold, float early_alpha,
-                                 float tf_scale, void* stream) {
+                                 const float* lut, float* out, float* dens, int height, int width,
+                                 int n, int nr, int nc, int ln, int sign, int subtexel,
+                                 int bilinear, int u8, int shading, int emit, float threshold,
+                                 float early_alpha, float tf_scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VOLYM_LAUNCH(B, U, S)                                                                 \
-    launch<B, U, S>(feats, vol, grad, lut, out, height, width, n, nr, nc, ln, sign, subtexel, \
-                    threshold, early_alpha, tf_scale, s)
+#define VOLYM_LAUNCH(B, U, S, E)                                                            \
+    launch<B, U, S, E>(feats, vol, grad, lut, out, dens, height, width, n, nr, nc, ln, sign, \
+                       subtexel, threshold, early_alpha, tf_scale, s)
+#define VOLYM_LAUNCH_E(B, U, S)         \
+    if (emit) {                         \
+        VOLYM_LAUNCH(B, U, S, true);    \
+    } else {                            \
+        VOLYM_LAUNCH(B, U, S, false);   \
+    }
     const int variant = (bilinear ? 4 : 0) | (u8 ? 2 : 0) | (shading ? 1 : 0);
     switch (variant) {
-        case 0: VOLYM_LAUNCH(false, false, false); break;
-        case 1: VOLYM_LAUNCH(false, false, true); break;
-        case 2: VOLYM_LAUNCH(false, true, false); break;
-        case 3: VOLYM_LAUNCH(false, true, true); break;
-        case 4: VOLYM_LAUNCH(true, false, false); break;
-        case 5: VOLYM_LAUNCH(true, false, true); break;
-        case 6: VOLYM_LAUNCH(true, true, false); break;
-        default: VOLYM_LAUNCH(true, true, true); break;
+        case 0: VOLYM_LAUNCH_E(false, false, false); break;
+        case 1: VOLYM_LAUNCH_E(false, false, true); break;
+        case 2: VOLYM_LAUNCH_E(false, true, false); break;
+        case 3: VOLYM_LAUNCH_E(false, true, true); break;
+        case 4: VOLYM_LAUNCH_E(true, false, false); break;
+        case 5: VOLYM_LAUNCH_E(true, false, true); break;
+        case 6: VOLYM_LAUNCH_E(true, true, false); break;
+        default: VOLYM_LAUNCH_E(true, true, true); break;
     }
+#undef VOLYM_LAUNCH_E
 #undef VOLYM_LAUNCH
     return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
-"""The slab march on the GPU: the per-ray table, the CUDA kernel's wrapper
-and the production render.
+"""The slab march on the GPU: the per-ray table, the CUDA kernel's wrapper,
+the production render and the differentiable render.
 
-Counterpart of :mod:`volym_tpu.ops.slab_kernel` (forward, base and shading
-modes).  The TPU kernel ``_march_kernel`` samples with hat-matrix products
+Counterpart of :mod:`volym_tpu.ops.slab_kernel` (base and shading modes,
+forward and, through :class:`DiffMarch`, the backward without camera
+gradients).  The TPU kernel ``_march_kernel`` samples with hat-matrix products
 on the MXU over a grid of (ray chunk, slab block) pairs; the CUDA kernel
 (``csrc/slab_march.cu``) marches one ray per thread with direct texel
 loads and needs none of that machinery: no pair grid, tile order, window
@@ -22,6 +23,7 @@ import ctypes
 import torch
 
 from volym_tpu_torch.config import Interpolation, RenderParams
+from volym_tpu_torch.ops import slab_replay
 from volym_tpu_torch.render import rays as rays_mod
 from volym_tpu_torch.render import slab as slab_mod
 from volym_tpu_torch.render.slab import (
@@ -97,7 +99,7 @@ def _library():
         p = ctypes.c_void_p
         i = ctypes.c_int
         f = ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, f, f, f, p]
+        fn.argtypes = [p] * 6 + [i] * 12 + [f, f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -110,9 +112,12 @@ def march_cuda(
     params: RenderParams,
     grad_perm: torch.Tensor | None = None,
     u8: bool = False,
-) -> torch.Tensor:
+    emit_density: bool = False,
+):
     """Launch the CUDA march kernel; same arguments and result as
-    :func:`slab.march_slabs`."""
+    :func:`slab.march_slabs`.  With ``emit_density`` the residual is
+    zero-filled here (``torch.zeros``) and the kernel writes the steps it
+    samples."""
     global LAUNCHES
     dev = feats.device
     if dev.type != "cuda":
@@ -142,56 +147,71 @@ def march_cuda(
     threshold, early_alpha, dscale = slab_mod.march_knobs(params, u8)
     tf_scale = float(ln) * (dscale if dscale else 1.0)
     out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
+    dens = None
+    if emit_density:
+        dens = torch.zeros(
+            (n, 4, height, width) if shading else (n, height, width), dtype=torch.float32, device=dev
+        )
     fn = _library()
     with torch.cuda.device(dev):
         rc = fn(
             feats.data_ptr(), vol_perm.data_ptr(), grad_perm.data_ptr() if shading else None,
-            lut.data_ptr(), out.data_ptr(),
+            lut.data_ptr(), out.data_ptr(), dens.data_ptr() if emit_density else None,
             height, width, n, nr, nc, ln, int(sign), int(params.subtexel_bits),
-            int(params.interpolation == Interpolation.TRILINEAR), int(u8), int(shading),
+            int(params.interpolation == Interpolation.TRILINEAR), int(u8), int(shading), int(emit_density),
             threshold, early_alpha, tf_scale,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"slab_march kernel launch failed with CUDA error {rc}")
     LAUNCHES += 1
-    return out
+    return (out, dens) if emit_density else out
 
 
-def march(feats, vol_perm, lut, sign, params, grad_perm=None, u8=False) -> torch.Tensor:
+def march(feats, vol_perm, lut, sign, params, grad_perm=None, u8=False, emit_density=False):
     """The slab march on the tensors' device: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (no fallback between them)."""
     if feats.device.type == "cpu":
-        return slab_mod.march_slabs(feats, vol_perm, lut, sign, params, grad_perm, u8)
-    return march_cuda(feats, vol_perm, lut, sign, params, grad_perm, u8)
+        return slab_mod.march_slabs(feats, vol_perm, lut, sign, params, grad_perm, u8, emit_density)
+    return march_cuda(feats, vol_perm, lut, sign, params, grad_perm, u8, emit_density)
+
+
+def _layout(scene, camera_matrices, params: RenderParams):
+    """(major axis, march sign, sample-plane count, u8 domain) of a frame."""
+    major, sign = slab_mod.dominant_axis(camera_matrices)
+    n = scene.volume.shape[0]
+    planes = slab_mod.resolve_planes(params, n)
+    return major, sign, planes, u8_active(params, planes, n)
+
+
+def _gradient_perm(volume: torch.Tensor, major: int, planes: int) -> torch.Tensor:
+    """The permuted, plane-resampled gradient field of ``volume``."""
+    return slab_mod.slab_resample_grad(
+        slab_mod.permute_gradient(slab_mod.gradient_volume(volume), major), planes
+    ).contiguous()
+
+
+def _features(camera_matrices, device, height, width, planes, major, sign, n_plane) -> torch.Tensor:
+    """The (N_FEATURES, H, W) per-ray table of a frame."""
+    origin, dirs = rays_mod.generate_rays(camera_matrices.to(device), height, width)
+    entry, exit_ = rays_mod.ray_box_intersection(origin, dirs)
+    feats = features_from_rays(origin, dirs, entry, exit_, planes, major, sign, n_plane=n_plane)
+    return feats.reshape(N_FEATURES, height, width)
 
 
 def prepare(scene, camera_matrices, params: RenderParams, height: int, width: int):
     """The march's inputs for one frame: ``(feats, vol_perm, lut, sign,
     grad_perm, u8)`` on the scene's device."""
     check_supported(params)
-    device = scene.device
-    major, sign = slab_mod.dominant_axis(camera_matrices)
-    cm = camera_matrices.to(device)
-    n = scene.volume.shape[0]
-    planes = slab_mod.resolve_planes(params, n)
-    u8 = u8_active(params, planes, n)
+    major, sign, planes, u8 = _layout(scene, camera_matrices, params)
     if u8:
         if scene.volume_u8 is None:
             raise ValueError("u8_volume needs a scene with a uint8 volume (Scene.from_uint8)")
         vol_perm = slab_mod.permute_volume(scene.volume_u8, major)
     else:
         vol_perm = slab_mod.slab_resample(slab_mod.permute_volume(scene.volume, major), planes)
-    grad_perm = None
-    if params.use_shading:
-        grad_perm = slab_mod.slab_resample_grad(
-            slab_mod.permute_gradient(slab_mod.gradient_volume(scene.volume), major), planes
-        ).contiguous()
-    origin, dirs = rays_mod.generate_rays(cm, height, width)
-    entry, exit_ = rays_mod.ray_box_intersection(origin, dirs)
-    feats = features_from_rays(
-        origin, dirs, entry, exit_, planes, major, sign, n_plane=vol_perm.shape[1]
-    ).reshape(N_FEATURES, height, width)
+    grad_perm = _gradient_perm(scene.volume, major, planes) if params.use_shading else None
+    feats = _features(camera_matrices, scene.device, height, width, planes, major, sign, vol_perm.shape[1])
     return feats, vol_perm.contiguous(), scene.tf_lut.contiguous(), sign, grad_perm, u8
 
 
@@ -200,3 +220,80 @@ def render(scene, camera_matrices, params: RenderParams, height: int, width: int
     ``march_fn`` (default :func:`march`: the CUDA kernel on a GPU)."""
     feats, vol_perm, lut, sign, grad_perm, u8 = prepare(scene, camera_matrices, params, height, width)
     return march_fn(feats, vol_perm, lut, sign, params, grad_perm, u8=u8)
+
+
+def check_differentiable(params: RenderParams) -> None:
+    """Raise for the modes the differentiable render does not implement
+    yet: those of :func:`check_supported`, and camera gradients."""
+    if params.camera_grads:
+        raise NotImplementedError(
+            "not ported to volym_tpu_torch yet: camera gradients (camera_grads=True; "
+            "pass camera_grads=False for scene-only gradients)"
+        )
+    check_supported(params)
+
+
+class DiffMarch(torch.autograd.Function):
+    """The differentiable slab march: the counterpart of the TPU package's
+    custom VJPs ``march_pallas`` and ``march_pallas_shaded``.
+
+    Forward: the march (B1), which also stores the density residual when
+    :func:`slab_replay.use_stored_density` holds.  Backward: the replay
+    with its fused voxel scatter (B2), into d ``vol_perm``, d ``lut`` and,
+    shaded, d ``grad_perm``; ``feats`` gets none (no camera gradients).
+    In the u8 domain the march reads ``round(vol_perm * 255)`` as uint8
+    and the replay's d/d(scaled density) is multiplied by 255.  The march
+    and the replay are ``march_fn`` and ``replay_fn`` (:func:`march` and
+    :func:`slab_replay.replay` dispatch on the tensors' device).
+    """
+
+    @staticmethod
+    def forward(ctx, vol_perm, lut, grad_perm, feats, sign, params, u8, march_fn, replay_fn):
+        if u8:
+            vol = torch.round(vol_perm * 255.0).clamp_(0.0, 255.0).to(torch.uint8).contiguous()
+        else:
+            vol = vol_perm.contiguous()
+        lut = lut.contiguous()
+        stored = slab_replay.use_stored_density(params, vol.shape[0], feats.shape[1] * feats.shape[2])
+        res = march_fn(feats, vol, lut, sign, params, grad_perm, u8, emit_density=stored)
+        out, dens = res if stored else (res, None)
+        ctx.save_for_backward(feats, vol, lut, grad_perm, out, dens)
+        ctx.sign, ctx.params, ctx.u8, ctx.replay_fn = sign, params, u8, replay_fn
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_img):
+        feats, vol, lut, grad_perm, out, dens = ctx.saved_tensors
+        d_vol, d_grad, d_lut = ctx.replay_fn(
+            feats, vol, lut, ctx.sign, ctx.params, out, g_img.contiguous(), grad_perm, ctx.u8, dens
+        )
+        if ctx.u8:
+            d_vol = d_vol * 255.0  # d/d(scaled density) -> d/d(v/255 volume)
+        return d_vol, d_lut, d_grad, None, None, None, None, None, None
+
+
+def render_diff(
+    scene, camera_matrices, params: RenderParams, height: int, width: int, march_fn=march, replay_fn=slab_replay.replay
+):
+    """Differentiable slab render -> (H, W, 4) on the scene's device, the
+    counterpart of ``slab_kernel.render_diff``.  Gradients reach
+    ``scene.volume`` and ``scene.tf_lut`` through ``torch.autograd``: the
+    permute, the plane resample and the gradient field stay in the graph,
+    and :class:`DiffMarch` is the march and its replay, through
+    ``march_fn`` and ``replay_fn`` (default: the CUDA kernels on a GPU).
+
+    In the u8 domain (:func:`u8_active`) the uint8 grid is derived from the
+    differentiable volume on every call, ``round(volume * 255)``, so a
+    volume that is not u8-representable is quantised silently, as in the
+    TPU package (and values outside [0, 1] are clamped to it);
+    ``scene.volume_u8`` is not read.  Camera gradients, smoothing,
+    coloring, look-ahead and first-hit raise ``NotImplementedError``.
+    """
+    check_differentiable(params)
+    major, sign, planes, u8 = _layout(scene, camera_matrices, params)
+    vol_perm = slab_mod.slab_resample(slab_mod.permute_volume(scene.volume, major), planes)
+    grad_perm = _gradient_perm(scene.volume, major, planes) if params.use_shading else None
+    with torch.no_grad():
+        feats = _features(camera_matrices, scene.device, height, width, planes, major, sign, vol_perm.shape[1])
+    return DiffMarch.apply(vol_perm, scene.tf_lut, grad_perm, feats, sign, params, u8, march_fn, replay_fn)

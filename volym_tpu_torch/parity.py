@@ -7,7 +7,8 @@ half-texel boundary, take the other side of the mask in one of the two
 and move that pixel by O(one step).  The rule is the JAX package's own
 (``tests/test_u8_stream.py::_close``): at most ``edge_frac`` of the entries
 may differ by more than 1e-3 of the scale, and every other entry agrees to
-``bulk`` of the scale.
+``bulk`` of the scale.  A TF LUT gradient takes the rule in two groups
+(:func:`check_lut_grad`), since its opaque end dwarfs the other entries.
 """
 
 from __future__ import annotations
@@ -54,3 +55,36 @@ def check_close(a, b, name: str, bulk: float = 2e-4, edge_frac: float = 2e-3) ->
     if r.bulk_err > bulk * r.scale + 1e-12:
         raise AssertionError(f"{name}: bulk error {r.bulk_err:.2e} (limit {bulk * r.scale:.2e})")
     return r
+
+
+def opaque_entries(lut) -> np.ndarray:
+    """The (LN, 4) mask of the TF LUT gradient's entries at the opaque end:
+    the alpha channel of the rows whose alpha is 1.  A sample there has
+    ``1 - a`` floored at 1e-37, and the opacity correction's derivative
+    ``aexp * (1 - a) ** (aexp - 1)`` (``aexp < 1``) reaches 1e15 and more,
+    far above every other entry."""
+    lut = _numpy(lut)
+    mask = np.zeros(lut.shape, bool)
+    mask[:, 3] = lut[:, 3] >= 1.0
+    return mask
+
+
+def check_lut_grad(a, b, lut, name: str, bulk: float = 2e-4, edge_frac: float = 2e-3) -> tuple[Agreement, float]:
+    """Raise ``AssertionError`` unless two TF LUT gradients agree: the
+    entries off the opaque end (:func:`opaque_entries`) by
+    :func:`check_close` on their own scale, and each opaque-end entry to
+    ``bulk`` of its own magnitude plus ``bulk`` of that scale.  One scale
+    for both groups would let the opaque end's 1e15 hide every other
+    entry.  -> (the agreement off the opaque end, the worst error of an
+    opaque-end entry over its magnitude plus that scale: at most ``bulk``)."""
+    a, b = _numpy(a), _numpy(b)
+    if a.shape != b.shape:
+        raise ValueError(f"shapes differ: {a.shape} vs {b.shape}")
+    opaque = opaque_entries(lut)
+    r = check_close(a[~opaque], b[~opaque], f"{name} (off the opaque end)", bulk, edge_frac)
+    err = np.abs(a[opaque] - b[opaque])
+    rel = err / (np.abs(a[opaque]) + r.scale)
+    if (rel > bulk).any():
+        i = int(np.argmax(rel))
+        raise AssertionError(f"{name}: opaque-end entry off by {err[i]:.3e} of {a[opaque][i]:.3e}")
+    return r, float(rel.max()) if rel.size else 0.0

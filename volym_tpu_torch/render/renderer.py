@@ -12,7 +12,7 @@ from typing import Callable
 import torch
 
 from volym_tpu_torch.config import RenderParams
-from volym_tpu_torch.ops import slab_march
+from volym_tpu_torch.ops import slab_march, slab_replay
 from volym_tpu_torch.render import slab
 from volym_tpu_torch.scene import Scene
 
@@ -32,26 +32,38 @@ def make_renderer(
     ``device``.
 
     ``backend``: "slab" = the plain PyTorch slab march, on any device;
-    "slab_cuda" = the CUDA march kernel, which needs a CUDA device.  Render
-    modes that are not ported (Gaussian smoothing, importance coloring and
-    look-ahead, first-hit, the differentiable renderers) raise
-    ``NotImplementedError``.
+    "slab_cuda" = the CUDA kernels, which need a CUDA device.
+    ``differentiable``: the frame carries gradients to ``scene.volume`` and
+    ``scene.tf_lut`` (set ``requires_grad`` on them) through the replay
+    backward; it needs ``camera_grads=False``.  Render modes that are not
+    ported (Gaussian smoothing, importance coloring and look-ahead,
+    first-hit, camera gradients) raise ``NotImplementedError``.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown renderer backend {backend!r}; choose from {BACKENDS}")
     if differentiable:
-        raise NotImplementedError("the differentiable slab render is not ported to volym_tpu_torch yet")
-    slab_march.check_supported(params)
+        slab_march.check_differentiable(params)
+    else:
+        slab_march.check_supported(params)
     device = torch.device(device)
     if backend == "slab_cuda":
         if device.type != "cuda":
             raise RuntimeError(f"backend 'slab_cuda' renders on a CUDA device, got {device}")
         if not torch.cuda.is_available():
             raise RuntimeError("backend 'slab_cuda' needs CUDA, and torch.cuda.is_available() is False")
-        march_fn = slab_march.march  # CUDA tensors: the kernel
+        march_fn, replay_fn = slab_march.march, slab_replay.replay  # CUDA tensors: the kernels
     else:
-        march_fn = slab.march_slabs
+        march_fn, replay_fn = slab.march_slabs, slab.replay_slabs
     scene = scene.to(device)
+
+    if differentiable:
+
+        def render(camera_matrices) -> torch.Tensor:
+            return slab_march.render_diff(
+                scene, camera_matrices, params, height, width, march_fn=march_fn, replay_fn=replay_fn
+            )
+
+        return render
 
     def render(camera_matrices) -> torch.Tensor:
         return slab_march.render(scene, camera_matrices, params, height, width, march_fn=march_fn)

@@ -1,15 +1,18 @@
 """Slab-marching renderer: plain PyTorch version.
 
-Counterpart of :mod:`volym_tpu.render.slab` for the forward base and
-shading modes.  The march steps along the camera's dominant axis one voxel
-plane at a time, so every sample lies on a plane and trilinear filtering is
-bilinear inside one slice (see the JAX module for the derivation).
+Counterpart of :mod:`volym_tpu.render.slab` for the base and shading
+modes, forward and backward (without camera gradients).  The march steps
+along the camera's dominant axis one voxel plane at a time, so every
+sample lies on a plane and trilinear filtering is bilinear inside one
+slice (see the JAX module for the derivation).
 
 :func:`march_slabs` is the plain version of the CUDA march kernel
 (:mod:`volym_tpu_torch.ops.slab_march`): it reads the same per-ray table and
 evaluates every per-sample expression in the order the kernel does, so on
 one device the two agree to the rounding of ``exp``/``log``/``pow``.  It
-also runs the u8 scaled density domain of the TPU kernel.
+also runs the u8 scaled density domain of the TPU kernel, and emits the
+stored-density residual.  :func:`replay_slabs` is the plain version of the
+CUDA replay backward (:mod:`volym_tpu_torch.ops.slab_replay`).
 
 Rays whose dominant-axis direction component opposes the camera forward
 axis (possible at extreme fov) render as (0, 0, 0, 0), as in the JAX package.
@@ -173,11 +176,9 @@ def gradient_volume(volume: torch.Tensor) -> torch.Tensor:
     return torch.stack(grads)
 
 
-def _bilinear_slice(sl: torch.Tensor, rows_c: torch.Tensor, cols_c: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample of one (nr, nc) slice at texel coords already in
-    ``p*N - 0.5`` space, clamp-to-edge; a uint8 slice is read as float."""
-    nr, nc = sl.shape
-    flat = sl.reshape(-1)
+def _bilinear_taps(rows_c: torch.Tensor, cols_c: torch.Tensor, nr: int, nc: int):
+    """The four clamp-to-edge taps of a bilinear sample: row indices
+    (r0, r1), column indices (c0, c1) and the fractions (tr, tc)."""
     r0f = torch.floor(rows_c)
     c0f = torch.floor(cols_c)
     tr = rows_c - r0f
@@ -186,6 +187,22 @@ def _bilinear_slice(sl: torch.Tensor, rows_c: torch.Tensor, cols_c: torch.Tensor
     r1 = torch.clamp(r0f + 1, 0, nr - 1).long()
     c0 = torch.clamp(c0f, 0, nc - 1).long()
     c1 = torch.clamp(c0f + 1, 0, nc - 1).long()
+    return r0, r1, c0, c1, tr, tc
+
+
+def _nearest_tap(rows_c: torch.Tensor, cols_c: torch.Tensor, nr: int, nc: int) -> torch.Tensor:
+    # wgpu nearest: texel floor(p*N) = floor(coords + 0.5) in texel space
+    r = torch.clamp(torch.floor(rows_c + 0.5), 0, nr - 1).long()
+    c = torch.clamp(torch.floor(cols_c + 0.5), 0, nc - 1).long()
+    return r * nc + c
+
+
+def _bilinear_slice(sl: torch.Tensor, rows_c: torch.Tensor, cols_c: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of one (nr, nc) slice at texel coords already in
+    ``p*N - 0.5`` space, clamp-to-edge; a uint8 slice is read as float."""
+    nr, nc = sl.shape
+    flat = sl.reshape(-1)
+    r0, r1, c0, c1, tr, tc = _bilinear_taps(rows_c, cols_c, nr, nc)
     v00 = flat[r0 * nc + c0].float()
     v01 = flat[r0 * nc + c1].float()
     v10 = flat[r1 * nc + c0].float()
@@ -199,11 +216,23 @@ def _bilinear_slice(sl: torch.Tensor, rows_c: torch.Tensor, cols_c: torch.Tensor
 
 
 def _nearest_slice(sl: torch.Tensor, rows_c: torch.Tensor, cols_c: torch.Tensor) -> torch.Tensor:
-    # wgpu nearest: texel floor(p*N) = floor(coords + 0.5) in texel space
     nr, nc = sl.shape
-    r = torch.clamp(torch.floor(rows_c + 0.5), 0, nr - 1).long()
-    c = torch.clamp(torch.floor(cols_c + 0.5), 0, nc - 1).long()
-    return sl.reshape(-1)[r * nc + c].float()
+    return sl.reshape(-1)[_nearest_tap(rows_c, cols_c, nr, nc)].float()
+
+
+def _scatter_sample(dst: torch.Tensor, rows_c, cols_c, value: torch.Tensor, bilinear: bool) -> None:
+    """Transpose of one slice sample: add ``value`` (R,) into the (nr, nc)
+    slice ``dst`` with the sample's own bilinear or box weights (the fused
+    scatter of the TPU replay, ``slab_bwd_kernel.py:792-815``)."""
+    nr, nc = dst.shape
+    flat = dst.view(-1)
+    if not bilinear:
+        flat.index_add_(0, _nearest_tap(rows_c, cols_c, nr, nc), value)
+        return
+    r0, r1, c0, c1, tr, tc = _bilinear_taps(rows_c, cols_c, nr, nc)
+    ur, uc = 1.0 - tr, 1.0 - tc
+    idx = torch.cat([r0 * nc + c0, r0 * nc + c1, r1 * nc + c0, r1 * nc + c1])
+    flat.index_add_(0, idx, torch.cat([value * ur * uc, value * ur * tc, value * tr * uc, value * tr * tc]))
 
 
 def march_knobs(params: RenderParams, u8: bool) -> tuple[float, float, float | None]:
@@ -216,6 +245,28 @@ def march_knobs(params: RenderParams, u8: bool) -> tuple[float, float, float | N
     return float(thr), float(np.float32(params.early_termination_alpha)), (1.0 / 255.0) if u8 else None
 
 
+def _step_coords(f: torch.Tensor, j: int, n: int, nr: int, nc: int, sign: int, bits: int):
+    """March step j: (physical plane k, t, snapped rows, snapped cols)."""
+    k = j if sign > 0 else n - 1 - j
+    t = f[F_TS] * float(j) + f[F_TB]
+    rows_c = snap(torch.clamp(f[F_RS] * float(j) + f[F_RB], 0.0, nr - 1.0), bits)
+    cols_c = snap(torch.clamp(f[F_CS] * float(j) + f[F_CB], 0.0, nc - 1.0), bits)
+    return k, t, rows_c, cols_c
+
+
+def _blinn_phong(rgb: torch.Tensor, g: torch.Tensor, half: torch.Tensor):
+    """Blinn-Phong from a gradient-field sample g (R, 3) (``wgsl:190-211``):
+    (shaded rgb, unit normal, nonzero mask, the diffuse dot before its
+    clamp, h.n, the shade factor), in the CUDA march's operation order."""
+    nrm, nonzero = safe_normalize(g)
+    s_diff = (nrm[:, 0:1] + nrm[:, 1:2] + nrm[:, 2:3]) * INV_SQRT3
+    hdotn = half[:, 0:1] * nrm[:, 0:1] + half[:, 1:2] * nrm[:, 1:2] + half[:, 2:3] * nrm[:, 2:3]
+    spec = torch.clamp(hdotn, min=0.0) ** SHININESS
+    shade_f = AMBIENT + DIFFUSE * torch.clamp(s_diff, min=0.0)
+    shaded = rgb * shade_f + SPECULAR * spec
+    return torch.where(nonzero, shaded, rgb), nrm, nonzero, s_diff, hdotn, shade_f
+
+
 def march_slabs(
     feats: torch.Tensor,
     vol_perm: torch.Tensor,
@@ -224,7 +275,8 @@ def march_slabs(
     params: RenderParams,
     grad_perm: torch.Tensor | None = None,
     u8: bool = False,
-) -> torch.Tensor:
+    emit_density: bool = False,
+):
     """Front-to-back slab march -> (H, W, 4) image.
 
     ``feats``: (N_FEATURES, H, W) per-ray table (``F_*`` rows).
@@ -232,6 +284,16 @@ def march_slabs(
     uint8 grid when ``u8`` (the march then runs in the 0..255 domain).
     ``grad_perm``: (3, N, rows, cols) permuted :func:`gradient_volume`,
     required when ``params.use_shading``.
+
+    ``emit_density``: also return the stored-density residual the replay
+    (:func:`replay_slabs`) reads instead of re-sampling, as ``(img, dens)``.
+    ``dens`` is (N, H, W) float32 in march order j, or (N, 4, H, W) when
+    shaded.  Row 0 holds the sampled density (0..255 in the u8 domain) at
+    every step the kernel samples (sign flag set, ``entry <= t < exit``,
+    alpha below the early-termination alpha before the step) and exactly
+    0.0 elsewhere; rows 1..3 hold the gradient-field sample where the
+    density also passes the threshold, and 0.0 elsewhere.  A step that was
+    not sampled then contributes exactly nothing to the replay.
     """
     _, height, width = feats.shape
     f = feats.reshape(N_FEATURES, -1)
@@ -248,24 +310,26 @@ def march_slabs(
     half = f[F_HX : F_HZ + 1].t()
     acc_c = torch.zeros((f.shape[1], 3), dtype=torch.float32, device=f.device)
     acc_a = torch.zeros((f.shape[1],), dtype=torch.float32, device=f.device)
+    dens = (
+        torch.zeros((n, 4 if shading else 1, f.shape[1]), dtype=torch.float32, device=f.device)
+        if emit_density
+        else None
+    )
     for j in range(n):
-        k = j if sign > 0 else n - 1 - j
-        t = f[F_TS] * float(j) + f[F_TB]
-        rows_c = snap(torch.clamp(f[F_RS] * float(j) + f[F_RB], 0.0, nr - 1.0), bits)
-        cols_c = snap(torch.clamp(f[F_CS] * float(j) + f[F_CB], 0.0, nc - 1.0), bits)
+        k, t, rows_c, cols_c = _step_coords(f, j, n, nr, nc, sign, bits)
         density = sample2d(vol_perm[k], rows_c, cols_c)
-        m = sign_ok & (t >= entry) & (t < exit_) & (acc_a < early_alpha) & (density >= threshold)
+        live = sign_ok & (t >= entry) & (t < exit_) & (acc_a < early_alpha)
+        m = live & (density >= threshold)
 
         rgba = lut_sample(lut, density, dscale)
         rgb = rgba[:, :3]
         if shading:
             g = torch.stack([sample2d(grad_perm[c, k], rows_c, cols_c) for c in range(3)], dim=-1)
-            nrm, nonzero = safe_normalize(g)
-            diffuse = torch.clamp((nrm[:, 0:1] + nrm[:, 1:2] + nrm[:, 2:3]) * INV_SQRT3, min=0.0)
-            hdotn = half[:, 0:1] * nrm[:, 0:1] + half[:, 1:2] * nrm[:, 1:2] + half[:, 2:3] * nrm[:, 2:3]
-            spec = torch.clamp(hdotn, min=0.0) ** SHININESS
-            shaded = rgb * (AMBIENT + DIFFUSE * diffuse) + SPECULAR * spec
-            rgb = torch.where(nonzero, shaded, rgb)
+            rgb = _blinn_phong(rgb, g, half)[0]
+            if emit_density:
+                dens[j, 1:] = torch.where(m, g.t(), 0.0)
+        if emit_density:
+            dens[j, 0] = torch.where(live, density, 0.0)
 
         alpha = 1.0 - torch.exp(aexp * torch.log(torch.clamp(1.0 - rgba[:, 3], min=1e-37)))
         w = (1.0 - acc_a) * alpha * m.float()
@@ -274,7 +338,134 @@ def march_slabs(
     img = torch.cat([acc_c, acc_a[:, None]], dim=-1)
     miss = (exit_ <= entry)[:, None]
     img = torch.where(miss, torch.tensor(MISS_COLOR, dtype=torch.float32, device=f.device), img)
-    return img.reshape(height, width, 4)
+    img = img.reshape(height, width, 4)
+    if not emit_density:
+        return img
+    return img, (dens.reshape(n, height, width) if not shading else dens.reshape(n, 4, height, width))
+
+
+def replay_slabs(
+    feats: torch.Tensor,
+    vol_perm: torch.Tensor,
+    lut: torch.Tensor,
+    sign: int,
+    params: RenderParams,
+    out: torch.Tensor,
+    g_img: torch.Tensor,
+    grad_perm: torch.Tensor | None = None,
+    u8: bool = False,
+    dens: torch.Tensor | None = None,
+):
+    """Replay backward of :func:`march_slabs` -> ``(d_vol, d_grad, d_lut)``.
+
+    The plain version of the CUDA replay kernel (``ops/csrc/slab_replay.cu``)
+    and the counterpart of the TPU replay with its fused voxel scatter
+    (``slab_bwd_kernel._replay_step_body``).  It re-runs the compositing
+    recurrence plane by plane, rebuilds each step's transmittance from the
+    running accumulator and its suffix from the final image ``out``, and
+    chains the image cotangent ``g_img`` (H, W, 4) through the opacity
+    correction, the shading and the TF lookup.
+
+    ``dens``: the forward's residual (``march_slabs(..., emit_density=True)``);
+    without it the volume (and the gradient field) is re-sampled.  Both
+    routes give the same bits.
+
+    ``d_vol`` (N, rows, cols) is d/d(``vol_perm`` as marched): in the u8
+    domain d/d(scaled density), which the caller multiplies by 255.
+    ``d_grad`` is (3, N, rows, cols) when shaded, else None; ``d_lut`` is
+    (LN, 4).  The TF-coordinate derivative follows the TPU kernel: the
+    slope ``lut[i1] - lut[i0]`` inside a texel, 0 at an integer coordinate,
+    and none where the raw coordinate is clamped.
+    """
+    f = feats.reshape(N_FEATURES, -1)
+    n_rays = f.shape[1]
+    n, nr, nc = vol_perm.shape
+    ln = lut.shape[0]
+    threshold, early_alpha, dscale = march_knobs(params, u8)
+    tf_scale = float(ln) * (dscale if dscale else 1.0)
+    bits = params.subtexel_bits
+    bilinear = params.interpolation == Interpolation.TRILINEAR
+    sample2d = _bilinear_slice if bilinear else _nearest_slice
+    shading = params.use_shading
+    if shading and grad_perm is None and dens is None:
+        raise ValueError("shading needs the permuted gradient field")
+    if dens is not None:
+        dens = dens.reshape(n, 4 if shading else 1, n_rays)
+
+    sign_ok = f[F_SIGNOK] > 0.5
+    entry, exit_, aexp = f[F_ENTRY], f[F_EXIT], f[F_AEXP]
+    half = f[F_HX : F_HZ + 1].t()
+    fin = out.reshape(n_rays, 4)
+    g = g_img.reshape(n_rays, 4)
+    g_c, g_a = g[:, :3], g[:, 3]
+    dev = f.device
+    d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dev)
+    d_grad = torch.zeros((3, n, nr, nc), dtype=torch.float32, device=dev) if shading else None
+    d_lut = torch.zeros((ln, 4), dtype=torch.float32, device=dev)
+    acc_c = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
+    acc_a = torch.zeros((n_rays,), dtype=torch.float32, device=dev)
+    for j in range(n):
+        k, t, rows_c, cols_c = _step_coords(f, j, n, nr, nc, sign, bits)
+        density = dens[j, 0] if dens is not None else sample2d(vol_perm[k], rows_c, cols_c)
+        live = sign_ok & (t >= entry) & (t < exit_) & (acc_a < early_alpha)
+        mf = (live & (density >= threshold)).float()
+
+        # the TF lookup of lut_sample, keeping its texels and fraction
+        c_raw = density * tf_scale - 0.5
+        c = torch.clamp(c_raw, 0.0, ln - 1.0)
+        i0f = torch.floor(c)
+        fr = c - i0f
+        i0 = i0f.long()
+        i1 = torch.clamp(i0 + 1, max=ln - 1)
+        rgba = lut[i0] * (1.0 - fr)[:, None] + lut[i1] * fr[:, None]
+        rgb = rgba[:, :3]
+        if shading:
+            if dens is not None:
+                gs = dens[j, 1:].t()
+            else:
+                gs = torch.stack([sample2d(grad_perm[ch, k], rows_c, cols_c) for ch in range(3)], dim=-1)
+            rgb, nrm, nonzero, s_diff, hdotn, shade_f = _blinn_phong(rgb, gs, half)
+
+        log1ma = torch.log(torch.clamp(1.0 - rgba[:, 3], min=1e-37))
+        alpha = 1.0 - torch.exp(aexp * log1ma)
+        t_k = 1.0 - acc_a
+        beta = alpha * mf
+        w = t_k * alpha * mf
+        acc_c = acc_c + rgb * w[:, None]
+        acc_a = acc_a + w
+        suf_c = fin[:, :3] - acc_c
+        suf_a = fin[:, 3] - acc_a
+
+        inv = 1.0 / torch.clamp(1.0 - beta, min=1e-7)
+        d_beta = t_k * ((g_c * rgb).sum(-1) + g_a) - ((g_c * suf_c).sum(-1) + g_a * suf_a) * inv
+        d_alpha = d_beta * mf
+        d_a = d_alpha * aexp * torch.exp((aexp - 1.0) * log1ma)
+        d_rgb = g_c * w[:, None]
+        if shading:
+            # rgb = nonzero ? tf_rgb * shade_f + S * spec : tf_rgb
+            nzf = nonzero.float()
+            d_diffuse = (d_rgb * rgba[:, :3]).sum(-1, keepdim=True) * DIFFUSE * nzf
+            d_spec = d_rgb.sum(-1, keepdim=True) * SPECULAR * nzf
+            spec_base = torch.clamp(hdotn, min=0.0)
+            d_hdotn = torch.where(hdotn > 0.0, d_spec * SHININESS * spec_base ** (SHININESS - 1.0), 0.0)
+            d_sdiff = torch.where(s_diff > 0.0, d_diffuse, 0.0)
+            d_n = d_sdiff * INV_SQRT3 + d_hdotn * half
+            n_dot_dn = (nrm * d_n).sum(-1, keepdim=True)
+            sq = gs[:, 0:1] * gs[:, 0:1] + gs[:, 1:2] * gs[:, 1:2] + gs[:, 2:3] * gs[:, 2:3]
+            inv_norm = 1.0 / torch.sqrt(torch.where(nonzero, sq, 1.0))
+            d_g = inv_norm * (d_n - nrm * n_dot_dn) * nzf
+            d_rgb = d_rgb * torch.where(nonzero, shade_f, 1.0)
+            for ch in range(3):
+                _scatter_sample(d_grad[ch, k], rows_c, cols_c, d_g[:, ch], bilinear)
+        d_rgba = torch.cat([d_rgb, d_a[:, None]], dim=-1)
+
+        d_lut.index_add_(0, i0, d_rgba * (1.0 - fr)[:, None])
+        d_lut.index_add_(0, i1, d_rgba * fr[:, None])
+        slope = torch.where((fr > 0.0)[:, None], lut[i1] - lut[i0], 0.0)
+        dd = (d_rgba * slope).sum(-1) * tf_scale
+        dd = dd * ((c_raw > 0.0) & (c_raw < ln - 1.0)).float()
+        _scatter_sample(d_vol[k], rows_c, cols_c, dd, bilinear)
+    return d_vol, d_grad, d_lut
 
 
 def render(scene, camera_matrices, params: RenderParams, height: int, width: int) -> torch.Tensor:
@@ -282,3 +473,15 @@ def render(scene, camera_matrices, params: RenderParams, height: int, width: int
     from volym_tpu_torch.ops import slab_march
 
     return slab_march.render(scene, camera_matrices, params, height, width, march_fn=march_slabs)
+
+
+def render_diff(scene, camera_matrices, params: RenderParams, height: int, width: int) -> torch.Tensor:
+    """Plain differentiable slab render -> (H, W, 4) on the scene's device:
+    :func:`march_slabs` forward and :func:`replay_slabs` backward, the
+    counterpart of the jnp ``slab.render_diff`` (see
+    :func:`volym_tpu_torch.ops.slab_march.render_diff`)."""
+    from volym_tpu_torch.ops import slab_march
+
+    return slab_march.render_diff(
+        scene, camera_matrices, params, height, width, march_fn=march_slabs, replay_fn=replay_slabs
+    )
