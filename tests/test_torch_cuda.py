@@ -1,5 +1,5 @@
-"""The CUDA march and replay kernels against their plain PyTorch versions,
-on the card.
+"""The CUDA march, replay and look-ahead gate kernels against their plain
+PyTorch versions, on the card.
 
 Marked ``cuda``: these skip where ``torch.cuda.is_available()`` is false.
 Run them on a GPU machine with
@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from volym_tpu_torch import Camera, RenderParams, Scene, parity
-from volym_tpu_torch.ops import slab_march, slab_replay
+from chip_smoke import three_level_scene
+from volym_tpu_torch import Camera, RenderParams, Scene, convert, parity
+from volym_tpu_torch.ops import lookahead, slab_march, slab_replay
 from volym_tpu_torch.render import slab
 from volym_tpu_torch.render.renderer import make_renderer
 
@@ -163,3 +164,70 @@ def test_replay_cuda_checks_inputs(scene):
         slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g, grad, u8=u8, dens=dens[:-1])
     with pytest.raises(ValueError, match="on cpu"):
         slab_replay.replay_cuda(feats, vol, lut.cpu(), sign, p, img, g, grad, u8=u8)
+
+
+@pytest.fixture(scope="module")
+def scene3(device):
+    """Importance at all three look-ahead levels (chip_smoke's scene)."""
+    return convert.scene(*three_level_scene(SIDE), device=device)
+
+
+def _lookahead_params(stream, cone):
+    return RenderParams(
+        use_gaussian_smoothing=False, u8_volume=True, use_importance_rendering=True, use_cone_importance_check=cone,
+        interpolation="trilinear" if stream == "u8" else "nearest", use_shading=stream == "f32",
+        raymarching_step_size=(1.0 if stream == "u8" else 2.0) / SIDE,
+    )
+
+
+@pytest.mark.parametrize("cone", [False, True], ids=["straight", "cone"])
+@pytest.mark.parametrize("stream", ["u8", "f32"])
+@pytest.mark.parametrize("h,v", ORBITS)
+def test_gate_matches_plain(scene3, h, v, stream, cone):
+    """B6 (straight) and B7 (cone) against the plain gate, bit for bit; B1
+    with the packed gate against the plain march with the plain gate, bit
+    for bit."""
+    p = _lookahead_params(stream, cone)
+    cam = Camera(aspect=W / H, distance=1.3).orbit(h, v, 0.0).matrices()
+    feats, vol, lut, sign, grad, u8 = slab_march.prepare(scene3, cam, p, H, W)
+    cone_feats, levels = slab_march.lookahead_inputs(scene3, cam, p, H, W)
+    before = (lookahead.STRAIGHT_LAUNCHES, lookahead.CONE_LAUNCHES)
+    words = lookahead.gate_cuda(feats, cone_feats, levels, sign, p.subtexel_bits)
+    assert (lookahead.STRAIGHT_LAUNCHES, lookahead.CONE_LAUNCHES) == (before[0] + (not cone), before[1] + cone)
+    want = slab.lookahead_gate(feats, cone_feats, levels, sign, p.subtexel_bits)
+    torch.cuda.synchronize()
+    assert words.dtype == torch.int32 and tuple(words.shape) == (lookahead.gate_words(vol.shape[0]), H, W)
+    parity.check_gate(want, lookahead.unpack_gate(words, vol.shape[0]), f"{stream} cone={cone}")
+    assert want.any(), "the gate never engages"
+    img = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, gate=words)
+    plain = slab.march_slabs(feats, vol, lut, sign, p, grad, u8, gate=want)
+    torch.cuda.synchronize()
+    assert torch.equal(img, plain)
+
+
+def test_lookahead_renderer_counts_launches(scene3, device):
+    p = _lookahead_params("u8", True)
+    render = make_renderer(scene3, p, H, W, backend="slab_cuda", device=device)
+    cam = Camera(aspect=W / H, distance=1.3).orbit(30.0, 20.0, 0.0).matrices()
+    before = (slab_march.LAUNCHES, lookahead.CONE_LAUNCHES)
+    img = render(cam)
+    assert (slab_march.LAUNCHES, lookahead.CONE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    parity.check_close(slab.render(scene3, cam, p, H, W), img, "cone frame vs plain")
+
+
+def test_gate_cuda_checks_inputs(scene3):
+    p = _lookahead_params("u8", True)
+    cam = Camera(aspect=W / H).matrices()
+    feats, vol, lut, sign, grad, u8 = slab_march.prepare(scene3, cam, p, H, W)
+    cone_feats, levels = slab_march.lookahead_inputs(scene3, cam, p, H, W)
+    with pytest.raises(ValueError, match="levels"):
+        lookahead.gate_cuda(feats, cone_feats, levels.float(), sign, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        lookahead.gate_cuda(feats, cone_feats[:, :, ::2], levels, sign, 8)
+    with pytest.raises(ValueError, match="on cpu"):
+        lookahead.gate_cuda(feats, cone_feats, levels.cpu(), sign, 8)
+    words = lookahead.gate_cuda(feats, None, levels, sign, 8)
+    with pytest.raises(ValueError, match="gate"):
+        slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, gate=words[:-1])
+    with pytest.raises(NotImplementedError, match="residual"):
+        slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, gate=words, emit_density=True)

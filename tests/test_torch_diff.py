@@ -28,11 +28,12 @@ Measured exceptions, each named here rather than loosened silently:
   with the TPU kernels to 1e-5 of the scale.
 - The camera sits at distance 1.2, as in the reference's own kernel tests.
   At distance 1.3 one ray of orbit 30/20 in the bench configuration has a
-  row coordinate on a subtexel-snap boundary (JAX's and the port's ray
-  directions differ by one ulp in ``jnp.linalg.norm``'s summation order);
-  the snap takes the other texel, the ray composites one more step, and
-  the bulk rule fails (image 3.8e-4, d_volume 6.4e-4, d_lut 9.6e-4 of the
-  scale) on that one ray.
+  row coordinate on a subtexel-snap boundary, where a one-ulp difference
+  in its direction makes the snap take the other texel.  The port's
+  directions equal JAX's bit for bit (``test_torch_rays``) because its
+  square roots are correctly rounded (``rays.sqrt_rn``); ``torch.sqrt`` on
+  float32 CPU tensors is not, and through it that ray composited one more
+  step and failed the bulk rule.  The orbit 30/20 cases pass at 1.3 too.
 - Shading against the jnp golden with nearest sampling: the golden's
   ``jnp.maximum(0, n.l)`` passes half the gradient at an exact zero of the
   diffuse dot, which nearest samples of a u8 grid hit (1 to 5 samples a

@@ -50,7 +50,8 @@ def test_port_never_imports_jax():
     code = (
         "import sys, volym_tpu_torch, volym_tpu_torch.cli, volym_tpu_torch.convert, "
         "volym_tpu_torch.parity, volym_tpu_torch.io, volym_tpu_torch.ops.slab_march, volym_tpu_torch.ops.slab_replay, "
-        "volym_tpu_torch.ops._build, volym_tpu_torch.render.renderer\n"
+        "volym_tpu_torch.ops.lookahead, volym_tpu_torch.ops._build, volym_tpu_torch.render.renderer, "
+        "volym_tpu_torch.render.golden\n"
         "volym_tpu_torch.cli.build_parser().parse_args(['screenshot'])\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "print('ok')"
@@ -83,7 +84,7 @@ def test_cli_run_saves_last_frame(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize(
     "flags",
-    [[], ["--no-gaussian", "--first-hit"], ["--no-gaussian", "--importance"],
+    [[], ["--no-gaussian", "--first-hit"], ["--importance", "--cone"],
      ["--no-gaussian", "--coloring"], ["--no-gaussian", "--profile", "x"]],
 )
 def test_cli_unported_modes_raise(tmp_path, flags):
@@ -96,7 +97,7 @@ def test_cli_unported_modes_raise(tmp_path, flags):
 @pytest.mark.parametrize(
     "kw",
     [dict(use_gaussian_smoothing=True), dict(use_importance_coloring=True),
-     dict(use_importance_rendering=True), dict(use_opacity=False)],
+     dict(use_importance_rendering=True, use_importance_coloring=True), dict(use_opacity=False)],
 )
 def test_renderer_unported_modes_raise(kw):
     with pytest.raises(NotImplementedError):

@@ -6,8 +6,12 @@ Both sides get the same numpy volume and LUT (made from a seed) through
 ``volym_tpu_torch.convert``.  The golden runs eagerly (``jax.disable_jit``):
 XLA's CPU fusion contracts multiply-adds into FMAs and moves ray
 coordinates by an ulp, which the subtexel snap turns into texel flips;
-eager JAX rounds op by op, as PyTorch does.  Tolerance: the repo's
-knife-edge rule (``volym_tpu_torch.parity.check_close``).
+eager JAX rounds op by op, as PyTorch does.  The port's ray directions
+equal eager JAX's bit for bit (``test_torch_rays``): its square roots are
+correctly rounded, as JAX's are, where ``torch.sqrt`` on float32 CPU
+tensors is not (``volym_tpu_torch.render.rays.sqrt_rn``), so no ray's
+subtexel snap hangs on the last bit.  Tolerance: the repo's knife-edge rule
+(``volym_tpu_torch.parity.check_close``).
 """
 
 import jax
@@ -24,17 +28,6 @@ H, W = 24, 32
 ORBITS = [(30.0, 20.0), (210.0, 20.0), (120.0, 10.0), (300.0, -10.0), (20.0, 70.0), (20.0, -70.0)]
 #: native (16 planes) and resampled (step 1/8 -> 8 planes)
 STEPS = [1.0 / SIDE, 2.0 / SIDE]
-#: rays that sit on a knife edge the tolerance rule cannot see: (orbit,
-#: interpolation, step) -> (row, col).  At camera distance 1.3 the ray at
-#: pixel (10, 19) of orbit 30/20 has a row coordinate on a subtexel-snap
-#: boundary in the native-plane trilinear march.  JAX's and the port's ray
-#: directions differ there by one ulp (``jnp.linalg.norm`` sums in another
-#: order), so which texel the snap takes hangs on the last bit, and it came
-#: out differently on two x86 machines with the same code.  Where it flips,
-#: that ray composites one more step and its four entries move by up to
-#: 3.2e-3 of the scale while every other entry agrees to 1e-6; the ray's
-#: entries are then counted as knife-edge entries
-KNIFE_EDGE_RAYS = {((30.0, 20.0), "trilinear", 1.0 / SIDE): (10, 19)}
 
 
 def make_scene(seed=7):
@@ -60,17 +53,7 @@ def compare(h, v, interp, step, shading):
     got = slab.render(st, convert.camera_matrices_from_jax(mj), convert.render_params(pj), H, W)
     assert got.shape == (H, W, 4)
     assert np.abs(want[..., 3]).max() > 0.5
-    got = got.numpy()
-    ray = KNIFE_EDGE_RAYS.get(((h, v), interp, step))
-    label = f"view {jslab.dominant_axis(mj)} {interp} step {step}"
-    if ray is not None:
-        # the named ray may take the other texel: hold it to one step's
-        # worth, count its entries as knife-edge ones, and the rest by the rule
-        assert np.abs(want[ray] - got[ray]).max() <= 1e-2 * np.abs(want).max(), label
-        got[ray] = want[ray]
-        parity.check_close(want, got, label, edge_frac=2e-3 - want[ray].size / want.size)
-    else:
-        parity.check_close(want, got, label)
+    parity.check_close(want, got.numpy(), f"view {jslab.dominant_axis(mj)} {interp} step {step}")
 
 
 @pytest.mark.parametrize("step", STEPS)

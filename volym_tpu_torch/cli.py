@@ -6,10 +6,13 @@
 The flags are those of ``python -m volym_tpu``, plus ``--device``.  The
 default renderer is the CUDA march kernel (``--renderer slab_cuda`` on
 ``--device cuda``); ``--renderer slab`` runs the plain PyTorch march on any
-device.  Gaussian smoothing is not ported yet, and ``--gaussian`` is on by
-default as in the reference: pass ``--no-gaussian``.  ``--first-hit``,
-``--importance``, ``--cone``, ``--coloring``, ``--distributed`` and
-``--profile`` are not ported yet either and raise ``NotImplementedError``.
+device.  ``--importance`` gates the march on importance look-ahead along
+the ray, ``--importance --cone`` along 8 cone directions (the CUDA gate
+kernels with ``slab_cuda``); ``--scene teapot`` is the segmented stand-in
+whose lobster is important.  Gaussian smoothing is not ported yet, and
+``--gaussian`` is on by default as in the reference: pass ``--no-gaussian``.
+``--first-hit``, ``--coloring``, ``--distributed`` and ``--profile`` are not
+ported yet either and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -150,8 +153,11 @@ def build_parser() -> argparse.ArgumentParser:
             "--first-hit", action="store_true",
             help="first-hit-then-break instead of alpha compositing (not ported yet)",
         )
-        p.add_argument("--importance", action="store_true", help="importance look-ahead (not ported yet)")
-        p.add_argument("--cone", action="store_true", help="cone look-ahead (not ported yet)")
+        p.add_argument(
+            "--importance", action="store_true",
+            help="importance look-ahead: skip samples with important material ahead",
+        )
+        p.add_argument("--cone", action="store_true", help="with --importance: probe 8 cone directions")
         p.add_argument("--coloring", action="store_true", help="importance coloring (not ported yet)")
         p.add_argument(
             "--no-u8", action="store_true",

@@ -34,6 +34,15 @@
 // kernel does not sample must read 0.0; the kernel does not write those,
 // the wrapper zero-fills the buffer (torch.zeros, one memset at full
 // bandwidth) before the launch.
+//
+// Look-ahead gate (the TPU kernel's `ahead` input): with a gate, the packed
+// bits of lookahead.cu, a step whose bit is set adds nothing, as if its
+// density were below the threshold (_march_step_body's `m & ~ahead`); it is
+// not sampled at all.  The word of steps j..j+31 is loaded at step j = 0
+// mod 32.  Without a gate (NULL) the word stays 0.  The t >= exit and
+// alpha >= early_alpha breaks are unchanged: a gated step adds no alpha.
+// The wrapper refuses a gate together with EMIT, whose residual belongs to
+// the look-ahead's backward.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,12 +57,13 @@ using namespace volym_slab;
 
 template <bool BILINEAR, bool U8, bool SHADING, bool EMIT>
 __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_march_kernel(
-    const float* __restrict__ feats,  // (13, H, W)
+    const float* __restrict__ feats,  // (N_FEATURES, H, W)
     const void* __restrict__ vol_,    // (n, nr, nc) uint8 if U8 else float
     const float* __restrict__ grad,   // (3, n, nr, nc) when SHADING
     const float* __restrict__ lut,    // (ln, 4)
     float* __restrict__ out,          // (H, W, 4)
     float* __restrict__ dens,         // (n, SHADING ? 4 : 1, H, W) when EMIT, zero-filled
+    const uint32_t* __restrict__ gate,  // (ceil(n / 32), H, W) packed gate bits, or NULL
     int height, int width, int n, int nr, int nc, int ln, int sign, int subtexel,
     float threshold, float early_alpha, float tf_scale) {
     using T = typename std::conditional<U8, uint8_t, float>::type;
@@ -91,11 +101,13 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_march_kernel(
         }
         const size_t slice = (size_t)nr * nc;
         const float rmax = (float)(nr - 1), cmax = (float)(nc - 1), lmax = (float)(ln - 1);
+        uint32_t word = 0u;
         for (int j = 0; j < n; ++j) {
             const float jf = (float)j;
             const float t = ts * jf + tb;
             if (t >= exit_ || acc_a >= early_alpha) break;
-            if (!(t >= entry)) continue;
+            if (gate != nullptr && (j & 31) == 0) word = __ldg(gate + (size_t)(j >> 5) * n_rays + r);
+            if (!(t >= entry) || ((word >> (j & 31)) & 1u)) continue;
             const float rows = snap(clampf(rs * jf + rb, 0.0f, rmax), subtexel);
             const float cols = snap(clampf(cs * jf + cb, 0.0f, cmax), subtexel);
             const size_t k = (size_t)(sign > 0 ? j : n - 1 - j);
@@ -151,28 +163,29 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_march_kernel(
 
 template <bool BILINEAR, bool U8, bool SHADING, bool EMIT>
 void launch(const float* feats, const void* vol, const float* grad, const float* lut, float* out,
-            float* dens, int height, int width, int n, int nr, int nc, int ln, int sign,
+            float* dens, const uint32_t* gate, int height, int width, int n, int nr, int nc, int ln, int sign,
             int subtexel, float threshold, float early_alpha, float tf_scale, cudaStream_t stream) {
     const dim3 block(TILE_X, TILE_Y);
     const dim3 grid((width + TILE_X - 1) / TILE_X, (height + TILE_Y - 1) / TILE_Y);
     const size_t smem = (size_t)ln * 4 * sizeof(float);
     slab_march_kernel<BILINEAR, U8, SHADING, EMIT><<<grid, block, smem, stream>>>(
-        feats, vol, grad, lut, out, dens, height, width, n, nr, nc, ln, sign, subtexel,
+        feats, vol, grad, lut, out, dens, gate, height, width, n, nr, nc, ln, sign, subtexel,
         threshold, early_alpha, tf_scale);
 }
 
 }  // namespace
 
 // C entry for ctypes: launches on `stream` and returns cudaGetLastError().
-// `dens` is NULL unless `emit` is set.
+// `dens` is NULL unless `emit` is set; `gate` is NULL without look-ahead.
 extern "C" int slab_march_launch(const float* feats, const void* vol, const float* grad,
-                                 const float* lut, float* out, float* dens, int height, int width,
+                                 const float* lut, float* out, float* dens, const uint32_t* gate,
+                                 int height, int width,
                                  int n, int nr, int nc, int ln, int sign, int subtexel,
                                  int bilinear, int u8, int shading, int emit, float threshold,
                                  float early_alpha, float tf_scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VOLYM_LAUNCH(B, U, S, E)                                                            \
-    launch<B, U, S, E>(feats, vol, grad, lut, out, dens, height, width, n, nr, nc, ln, sign, \
+    launch<B, U, S, E>(feats, vol, grad, lut, out, dens, gate, height, width, n, nr, nc, ln, sign, \
                        subtexel, threshold, early_alpha, tf_scale, s)
 #define VOLYM_LAUNCH_E(B, U, S)         \
     if (emit) {                         \

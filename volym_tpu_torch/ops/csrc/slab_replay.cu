@@ -219,7 +219,7 @@ __device__ __forceinline__ void replay_ray(
 
 template <bool BILINEAR, bool U8, bool SHADING, bool STORED>
 __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
-    const float* __restrict__ feats,  // (13, H, W)
+    const float* __restrict__ feats,  // (N_FEATURES, H, W)
     const void* __restrict__ vol,     // (n, nr, nc) uint8 if U8 else float; unread when STORED
     const float* __restrict__ grad,   // (3, n, nr, nc) when SHADING and not STORED
     const float* __restrict__ lut,    // (ln, 4)

@@ -9,6 +9,7 @@ and move that pixel by O(one step).  The rule is the JAX package's own
 may differ by more than 1e-3 of the scale, and every other entry agrees to
 ``bulk`` of the scale.  A TF LUT gradient takes the rule in two groups
 (:func:`check_lut_grad`), since its opaque end dwarfs the other entries.
+A look-ahead gate is compared bit by bit (:func:`gate_diff`).
 """
 
 from __future__ import annotations
@@ -88,3 +89,28 @@ def check_lut_grad(a, b, lut, name: str, bulk: float = 2e-4, edge_frac: float = 
         i = int(np.argmax(rel))
         raise AssertionError(f"{name}: opaque-end entry off by {err[i]:.3e} of {a[opaque][i]:.3e}")
     return r, float(rel.max()) if rel.size else 0.0
+
+
+@dataclass(frozen=True)
+class GateDiff:
+    n_bits: int  # (march step, ray) bits that differ
+    rays: tuple[tuple[int, int], ...]  # the (row, col) pixels of the rays they fall on
+
+
+def gate_diff(a, b) -> GateDiff:
+    """Compare two (N, H, W) bool look-ahead gates bit by bit."""
+    a, b = _numpy(a) > 0.5, _numpy(b) > 0.5
+    if a.shape != b.shape:
+        raise ValueError(f"shapes differ: {a.shape} vs {b.shape}")
+    diff = a != b
+    rows, cols = np.nonzero(diff.any(axis=0))
+    return GateDiff(int(diff.sum()), tuple(zip(rows.tolist(), cols.tolist())))
+
+
+def check_gate(a, b, name: str) -> GateDiff:
+    """Raise ``AssertionError`` unless two look-ahead gates are equal bit
+    for bit."""
+    d = gate_diff(a, b)
+    if d.n_bits:
+        raise AssertionError(f"{name}: {d.n_bits} gate bits differ, on the rays at {list(d.rays[:8])}")
+    return d

@@ -5,6 +5,9 @@ Python scalar are written tensor by tensor: PyTorch evaluates
 ``scalar / tensor`` (and, on CUDA, ``tensor / scalar``) through a
 reciprocal, one rounding away from the true quotient the JAX package
 computes, and the subtexel snap downstream turns such ulps into texel flips.
+For the same reason every square root of the package goes through
+:func:`sqrt_rn`, and the one dot product that JAX contracts into fused
+multiply-adds through :func:`fma_rn`.
 """
 
 from __future__ import annotations
@@ -35,9 +38,39 @@ def unproject_ndc(camera_matrices, ndc: torch.Tensor) -> torch.Tensor:
     return world[:, :3] / world[:, 3:4]
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of a float32 tensor, on every
+    device.  ``torch.sqrt`` on float32 CPU tensors runs a vectorised kernel
+    picked by the CPU's capability (AVX2, AVX512) that is one ulp off the
+    correctly rounded root for some inputs (433 of 65,536 on an AVX512
+    machine); JAX's and CUDA's roots are correctly rounded.  The float64
+    root rounded to float32 is the correctly rounded float32 root (53 bits
+    >= 2 * 24 + 2, so the double rounding is innocuous)."""
+    return torch.sqrt(x.double()).float()
+
+
+def fma_rn(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, as a fused multiply-add does.
+    The product is exact in float64; the sum is split into its float64
+    rounding and the exact error (TwoSum), and the error decides the one
+    case where rounding the float64 sum to float32 goes wrong: a sum that
+    lands exactly halfway between two float32 neighbours."""
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = p + c64
+    bv = s - p
+    err = (p - (s - bv)) + (c64 - bv)
+    r = s.float()
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    down = torch.nextafter(r, torch.full_like(r, float("-inf")))
+    r64 = r.double()
+    r = torch.where((s == (r64 + up.double()) * 0.5) & (err > 0), up, r)
+    return torch.where((s == (r64 + down.double()) * 0.5) & (err < 0), down, r)
+
+
 def norm3(v: torch.Tensor) -> torch.Tensor:
     """(R, 3) -> (R, 1) Euclidean norm, summed in component order."""
-    return torch.sqrt(v[:, 0:1] * v[:, 0:1] + v[:, 1:2] * v[:, 1:2] + v[:, 2:3] * v[:, 2:3])
+    return sqrt_rn(v[:, 0:1] * v[:, 0:1] + v[:, 1:2] * v[:, 1:2] + v[:, 2:3] * v[:, 2:3])
 
 
 def generate_rays(camera_matrices, height: int, width: int):

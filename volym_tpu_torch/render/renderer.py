@@ -12,7 +12,7 @@ from typing import Callable
 import torch
 
 from volym_tpu_torch.config import RenderParams
-from volym_tpu_torch.ops import slab_march, slab_replay
+from volym_tpu_torch.ops import lookahead, slab_march, slab_replay
 from volym_tpu_torch.render import slab
 from volym_tpu_torch.scene import Scene
 
@@ -35,9 +35,12 @@ def make_renderer(
     "slab_cuda" = the CUDA kernels, which need a CUDA device.
     ``differentiable``: the frame carries gradients to ``scene.volume`` and
     ``scene.tf_lut`` (set ``requires_grad`` on them) through the replay
-    backward; it needs ``camera_grads=False``.  Render modes that are not
-    ported (Gaussian smoothing, importance coloring and look-ahead,
-    first-hit, camera gradients) raise ``NotImplementedError``.
+    backward; it needs ``camera_grads=False``.  Importance look-ahead
+    (``use_importance_rendering``, straight or ``use_cone_importance_check``)
+    gates the forward render with the look-ahead gate (the CUDA gate
+    kernels with "slab_cuda").  Render modes that are not ported (Gaussian
+    smoothing, importance coloring, first-hit, camera gradients, and
+    look-ahead in the differentiable render) raise ``NotImplementedError``.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown renderer backend {backend!r}; choose from {BACKENDS}")
@@ -51,9 +54,10 @@ def make_renderer(
             raise RuntimeError(f"backend 'slab_cuda' renders on a CUDA device, got {device}")
         if not torch.cuda.is_available():
             raise RuntimeError("backend 'slab_cuda' needs CUDA, and torch.cuda.is_available() is False")
-        march_fn, replay_fn = slab_march.march, slab_replay.replay  # CUDA tensors: the kernels
+        # CUDA tensors: the kernels
+        march_fn, replay_fn, gate_fn = slab_march.march, slab_replay.replay, lookahead.gate
     else:
-        march_fn, replay_fn = slab.march_slabs, slab.replay_slabs
+        march_fn, replay_fn, gate_fn = slab.march_slabs, slab.replay_slabs, slab.lookahead_gate
     scene = scene.to(device)
 
     if differentiable:
@@ -66,6 +70,8 @@ def make_renderer(
         return render
 
     def render(camera_matrices) -> torch.Tensor:
-        return slab_march.render(scene, camera_matrices, params, height, width, march_fn=march_fn)
+        return slab_march.render(
+            scene, camera_matrices, params, height, width, march_fn=march_fn, gate_fn=gate_fn
+        )
 
     return render

@@ -1,7 +1,8 @@
 """Slab-marching renderer: plain PyTorch version.
 
 Counterpart of :mod:`volym_tpu.render.slab` for the base and shading
-modes, forward and backward (without camera gradients).  The march steps
+modes, forward (with importance look-ahead) and backward (without camera
+gradients or look-ahead).  The march steps
 along the camera's dominant axis one voxel plane at a time, so every
 sample lies on a plane and trilinear filtering is bilinear inside one
 slice (see the JAX module for the derivation).
@@ -12,7 +13,9 @@ evaluates every per-sample expression in the order the kernel does, so on
 one device the two agree to the rounding of ``exp``/``log``/``pow``.  It
 also runs the u8 scaled density domain of the TPU kernel, and emits the
 stored-density residual.  :func:`replay_slabs` is the plain version of the
-CUDA replay backward (:mod:`volym_tpu_torch.ops.slab_replay`).
+CUDA replay backward (:mod:`volym_tpu_torch.ops.slab_replay`), and
+:func:`lookahead_gate` that of the CUDA look-ahead gate
+(:mod:`volym_tpu_torch.ops.lookahead`).
 
 Rays whose dominant-axis direction component opposes the camera forward
 axis (possible at extreme fov) render as (0, 0, 0, 0), as in the JAX package.
@@ -26,6 +29,8 @@ import numpy as np
 import torch
 
 from volym_tpu_torch.config import Interpolation, RenderParams
+from volym_tpu_torch.render.golden import CONE_SAMPLES
+from volym_tpu_torch.render.rays import sqrt_rn
 from volym_tpu_torch.render.shading import AMBIENT, DIFFUSE, GRADIENT_OFFSET, SHININESS, SPECULAR, safe_normalize
 from volym_tpu_torch.transfer_function import lut_sample
 
@@ -41,11 +46,28 @@ _AXIS_LAYOUT = {
 #: rows of the per-ray table (the TPU kernel's F_* feature rows): sample
 #: coordinates ``rows = rs*j + rb``, ``cols = cs*j + cb`` and ``t = ts*j + tb``
 #: as affine functions of the march index j, the ray's [entry, exit)
-#: t-window, the opacity-correction exponent, the sign flag, and the
-#: Blinn-Phong half vector
+#: t-window, the opacity-correction exponent, the sign flag, the
+#: Blinn-Phong half vector, and cam.dir and |cam|^2 for the look-ahead's
+#: probe range.  The CUDA kernels read the same rows (csrc/slab_common.cuh).
 F_RS, F_RB, F_CS, F_CB, F_TS, F_TB, F_ENTRY, F_EXIT, F_AEXP, F_SIGNOK = range(10)
 F_HX, F_HY, F_HZ = 10, 11, 12
-N_FEATURES = 13
+F_CD, F_C2 = 13, 14
+N_FEATURES = 15
+#: rows of the cone look-ahead table, per cone direction: that direction's
+#: rows/cols/t slopes and intercepts (as in the per-ray table) and its rate,
+#: march steps per unit distance along it.  The TPU pads each direction to
+#: 8 rows for its sublane layout; here the stride is 7.
+CF_RS, CF_RB, CF_CS, CF_CB, CF_TS, CF_TB, CF_RATE = range(7)
+CF_STRIDE = 7
+CONE_FEATURES = CONE_SAMPLES * CF_STRIDE
+
+#: importance at or above which material counts as important ahead, and at
+#: or above which the current sample counts as opaque (``wgsl:133, 291``)
+IMPORTANT_AHEAD_THRESHOLD = 0.5
+IMPORTANCE_OPAQUE = 1.0
+#: "no important crossing ahead": the look-ahead's next-important march
+#: index before any is found (float32, as on the TPU)
+FAR = 1e9
 
 #: 1/sqrt(3), the normalised light direction's components (LIGHT_DIR = 1,1,1)
 INV_SQRT3 = 0.57735026
@@ -111,6 +133,27 @@ def slab_resample(vol_perm: torch.Tensor, planes: int) -> torch.Tensor:
     hi = torch.clamp(lo + 1, max=n - 1)
     w = (s - lo_f).reshape((planes,) + (1,) * (vol_perm.ndim - 1))
     return vol_perm[lo] * (1.0 - w) + vol_perm[hi] * w
+
+
+def slab_resample_nearest(grid_perm: torch.Tensor, planes: int) -> torch.Tensor:
+    """Nearest-neighbour resample of a permuted grid along the slab axis to
+    ``planes`` planes: the importance grid's step-size mapping (the
+    reference samples importance with a nearest sampler).  Identity when
+    ``planes`` equals the current count."""
+    n = grid_perm.shape[0]
+    if planes == n:
+        return grid_perm
+    s = (torch.arange(planes, dtype=torch.float32, device=grid_perm.device) + 0.5) * (n / planes) - 0.5
+    return grid_perm[torch.clamp(torch.floor(s + 0.5), 0, n - 1).long()]
+
+
+def importance_levels(imp_perm: torch.Tensor) -> torch.Tensor:
+    """The look-ahead's view of a permuted importance grid: one uint8 a
+    voxel, ``(imp >= IMPORTANT_AHEAD_THRESHOLD) + (imp >= IMPORTANCE_OPAQUE)``.
+    Level 1 and up is important material ahead, level 2 an opaque current
+    sample; the gate compares nothing else."""
+    return ((imp_perm >= IMPORTANT_AHEAD_THRESHOLD).to(torch.uint8)
+            + (imp_perm >= IMPORTANCE_OPAQUE).to(torch.uint8)).contiguous()
 
 
 def slab_resample_grad(grad_perm: torch.Tensor, planes: int) -> torch.Tensor:
@@ -254,6 +297,72 @@ def _step_coords(f: torch.Tensor, j: int, n: int, nr: int, nc: int, sign: int, b
     return k, t, rows_c, cols_c
 
 
+def lookahead_gate(
+    feats: torch.Tensor, cone_feats: torch.Tensor | None, levels: torch.Tensor, sign: int, subtexel: int
+) -> torch.Tensor:
+    """The importance look-ahead gate -> (N, H, W) bool in march order j:
+    the plain version of the CUDA gate kernels (``ops/csrc/lookahead.cu``)
+    and the function the TPU's ``lookahead_kernel.lookahead_call`` computes.
+
+    ``feats``: the (N_FEATURES, H, W) per-ray table; ``cone_feats``: the
+    (CONE_FEATURES, H, W) cone table for the cone variant, or None for the
+    straight one; ``levels``: the (N, rows, cols) :func:`importance_levels`
+    of the permuted importance grid.
+
+    A reverse march over j = N-1 .. 0 carries ``ns``, the march index of
+    the next important crossing ahead: one for the straight variant, along
+    the ray itself, and one per cone direction, each re-anchored at the
+    camera.  Step j's bit is set when the step is in the ray's window, an
+    important crossing lies ahead within the reference's probe range, and
+    the ray's own nearest sample at j is not opaque.  The range ends at
+    ``exit - |pos|``, a t-value minus the norm of the sample's position (the
+    reference's ``max_distance - length(pos)``).  Then ``ns`` takes j where
+    the step's nearest sample, snapped like the march's, is important:
+    the ray's own sample inside its window (straight), or each cone
+    direction's sample inside the box and ahead of the camera (cone, at
+    every step whatever the main ray's window).  Every expression follows
+    the TPU kernel's operation order (``lookahead_kernel.py:203-259``,
+    ``:467-612``), so a compare such as ``ns <= m_end`` decides as there.
+    """
+    _, height, width = feats.shape
+    f = feats.reshape(N_FEATURES, -1)
+    n, nr, nc = levels.shape
+    lv = levels.reshape(n, -1)
+    sign_ok = f[F_SIGNOK] > 0.5
+    entry, exit_, ts, c2, cd = f[F_ENTRY], f[F_EXIT], f[F_TS], f[F_C2], f[F_CD]
+    cone = cone_feats is not None
+    if cone:
+        cf = cone_feats.reshape(CONE_SAMPLES, CF_STRIDE, -1)
+        rate = cf[:, CF_RATE]
+    ns = torch.full((CONE_SAMPLES if cone else 1, f.shape[1]), FAR, dtype=torch.float32, device=f.device)
+    gate = torch.zeros((n, f.shape[1]), dtype=torch.bool, device=f.device)
+    for j in reversed(range(n)):
+        k, t, rows_c, cols_c = _step_coords(f, j, n, nr, nc, sign, subtexel)
+        jf = torch.tensor(float(j), dtype=torch.float32, device=f.device)
+        valid = sign_ok & (t >= entry) & (t < exit_)
+        norm_pos = sqrt_rn(torch.clamp(c2 + 2.0 * t * cd + t * t, min=0.0))
+        level = lv[k][_nearest_tap(rows_c, cols_c, nr, nc)]
+        if cone:
+            d_range = exit_ - norm_pos
+            ahead = ((ns <= jf + d_range * rate) & (rate > 0.0)).any(0) & valid
+            rows_u = cf[:, CF_RS] * jf + cf[:, CF_RB]
+            cols_u = cf[:, CF_CS] * jf + cf[:, CF_CB]
+            t_c = cf[:, CF_TS] * jf + cf[:, CF_TB]
+            inbox = (
+                (rows_u >= -0.5) & (rows_u <= nr - 0.5) & (cols_u >= -0.5) & (cols_u <= nc - 0.5) & (t_c > 0.0)
+            )
+            rows_s = snap(torch.clamp(rows_u, 0.0, nr - 1.0), subtexel)
+            cols_s = snap(torch.clamp(cols_u, 0.0, nc - 1.0), subtexel)
+            hit = (lv[k][_nearest_tap(rows_s, cols_s, nr, nc)] >= 1) & inbox
+        else:
+            m_end = jf + (exit_ - norm_pos) / ts
+            ahead = (ns[0] <= m_end) & valid
+            hit = ((level >= 1) & valid)[None]
+        gate[j] = ahead & (level < 2)
+        ns = torch.where(hit, jf, ns)
+    return gate.reshape(n, height, width)
+
+
 def _blinn_phong(rgb: torch.Tensor, g: torch.Tensor, half: torch.Tensor):
     """Blinn-Phong from a gradient-field sample g (R, 3) (``wgsl:190-211``):
     (shaded rgb, unit normal, nonzero mask, the diffuse dot before its
@@ -276,6 +385,7 @@ def march_slabs(
     grad_perm: torch.Tensor | None = None,
     u8: bool = False,
     emit_density: bool = False,
+    gate: torch.Tensor | None = None,
 ):
     """Front-to-back slab march -> (H, W, 4) image.
 
@@ -294,7 +404,14 @@ def march_slabs(
     0.0 elsewhere; rows 1..3 hold the gradient-field sample where the
     density also passes the threshold, and 0.0 elsewhere.  A step that was
     not sampled then contributes exactly nothing to the replay.
+
+    ``gate``: the (N, H, W) bool look-ahead gate (:func:`lookahead_gate`);
+    a step whose bit is set adds nothing, as if its density were below the
+    threshold.  The residual with a gate belongs to the look-ahead's
+    backward, which is not ported yet.
     """
+    if gate is not None and emit_density:
+        raise NotImplementedError("the stored-density residual with a look-ahead gate is not ported yet")
     _, height, width = feats.shape
     f = feats.reshape(N_FEATURES, -1)
     n, nr, nc = vol_perm.shape
@@ -320,6 +437,8 @@ def march_slabs(
         density = sample2d(vol_perm[k], rows_c, cols_c)
         live = sign_ok & (t >= entry) & (t < exit_) & (acc_a < early_alpha)
         m = live & (density >= threshold)
+        if gate is not None:
+            m = m & ~gate[j].reshape(-1)
 
         rgba = lut_sample(lut, density, dscale)
         rgb = rgba[:, :3]
@@ -452,7 +571,7 @@ def replay_slabs(
             d_n = d_sdiff * INV_SQRT3 + d_hdotn * half
             n_dot_dn = (nrm * d_n).sum(-1, keepdim=True)
             sq = gs[:, 0:1] * gs[:, 0:1] + gs[:, 1:2] * gs[:, 1:2] + gs[:, 2:3] * gs[:, 2:3]
-            inv_norm = 1.0 / torch.sqrt(torch.where(nonzero, sq, 1.0))
+            inv_norm = 1.0 / sqrt_rn(torch.where(nonzero, sq, 1.0))
             d_g = inv_norm * (d_n - nrm * n_dot_dn) * nzf
             d_rgb = d_rgb * torch.where(nonzero, shade_f, 1.0)
             for ch in range(3):
@@ -472,7 +591,9 @@ def render(scene, camera_matrices, params: RenderParams, height: int, width: int
     """Plain slab render -> (H, W, 4) on the scene's device."""
     from volym_tpu_torch.ops import slab_march
 
-    return slab_march.render(scene, camera_matrices, params, height, width, march_fn=march_slabs)
+    return slab_march.render(
+        scene, camera_matrices, params, height, width, march_fn=march_slabs, gate_fn=lookahead_gate
+    )
 
 
 def render_diff(scene, camera_matrices, params: RenderParams, height: int, width: int) -> torch.Tensor:
