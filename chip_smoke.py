@@ -7,8 +7,9 @@ Phases, in order; any failure ends the run with a nonzero exit:
 
 1. require CUDA and print the card's name and power limit;
 2. build the CUDA kernels from ``volym_tpu_torch/ops/csrc`` (one nvcc per
-   source, all started together): the march (B1), the replay (B2) and the
-   look-ahead gate (B6 straight and B7 cone, one source);
+   source, all started together): the march (B1), the replay (B2), the
+   voxel-gradient scatters (B3 and B4, one source) and the look-ahead gate
+   (B6 straight and B7 cone, one source);
 3. hold the kernels to their plain PyTorch versions on the card: 64^3
    synthetic bonsai, 96x64 rays, every (major axis, sign) view x {nearest,
    trilinear} x {u8 native planes, f32 resampled planes} x {shaded,
@@ -17,15 +18,25 @@ Phases, in order; any failure ends the run with a nonzero exit:
    re-sampled (96), whose two routes must also agree; then on a 64^3 scene
    with importance at three levels (:func:`three_level_scene`), every view
    x {u8 native, f32 resampled} x {straight, cone}: the gate kernels, bit
-   for bit (24), and the march with the gate, bit for bit (24);
+   for bit (24), and the march with the gate, bit for bit (24), and again
+   with Gaussian smoothing (24); then Gaussian smoothing on the 256^3
+   synthetic bonsai (every row of the stencil carries weight at 256
+   planes), 96x64 rays, every view x {nearest, trilinear} x {u8 native 256
+   planes, f32 resampled 128 planes} x {shaded, unshaded}: the march with
+   its residual, bit for bit (48), the unfused replay from the residual and
+   re-sampled (96), whose two routes must give the same cotangents bit for
+   bit, and the scatters B3 (unshaded) and B4 (shaded) on the folded
+   cotangents (48);
 4. serving: render the 256^3 synthetic bonsai at 1024x768 through
    ``make_renderer(..., backend="slab_cuda")``, 10 orbit frames 2 degrees
-   apart in each of two configurations (the bench forward: trilinear, u8,
-   threshold .15, step .005 -> 256 planes, unshaded; the CLI default without
-   smoothing: nearest, threshold .12, step .01 -> 128 resampled f32 planes,
-   shaded).  The march's launch count shows the frames went through it;
-   frame 0 is checked against the plain version; the kernel and the plain
-   version are timed with CUDA events;
+   apart in each of four configurations: the bench forward (trilinear, u8,
+   threshold .15, step .005 -> 256 planes, unshaded) and the CLI default
+   (nearest, threshold .12, step .01 -> 128 resampled f32 planes, shaded),
+   each without and with Gaussian smoothing (``bench_gaussian``, and
+   ``cli_default_gaussian``, the flags of ``screenshot`` with no options).
+   The march's launch count shows the frames went through it; frame 0 is
+   checked against the plain version (bit for bit under smoothing); the
+   kernel and the plain version are timed with CUDA events;
 5. serving with importance look-ahead: the 256^3 teapot stand-in (its
    lobster is important) at 1024x768 through ``make_renderer(...,
    backend="slab_cuda")``, the reference sweep's preset ``BENCHMARK_PARAMS``
@@ -49,12 +60,23 @@ Phases, in order; any failure ends the run with a nonzero exit:
    step are timed with CUDA events beside the plain step, and the step is
    profiled (device busy time, idle share, kernels by device time); then
    the march and the replay with the residual and without it are timed
-   in both serving configurations;
+   in both serving configurations; then the training step under Gaussian
+   smoothing in ``bench_gaussian`` and ``cli_default_gaussian`` at 256x256
+   and 1024x768, a few steps each: the launch counts of the march, the
+   replay and the scatter (B3 unshaded, B4 shaded) equal the steps; the
+   replay route each takes is printed; step 0 is checked against the plain
+   step, B3/B4 and B2's cotangents on both routes against their plain
+   versions; B1 with smoothing and its residual, B2 unfused on each route, the
+   stencil's transpose, B3/B4 (beside ``index_add_`` of the precomputed
+   corner indices and weights) and the whole step are timed with CUDA
+   events, and a step is profiled; at 1024x768 the re-sampled route is also
+   forced (a zero residual budget) and its step checked and timed;
 7. descent: 20 Adam steps (lr 1e-2, clamped to [0, 1]) on the volume and
    the LUT from a flat volume towards an image of the bonsai, on the f32
    stream (u8_volume=False, as fitting requires); the loss must fall;
-8. write two screenshots through the CLI, the second with ``--importance
-   --cone --scene teapot``.
+8. write two screenshots through the CLI with its default flags
+   (Gaussian smoothing on), the second with ``--importance --cone --scene
+   teapot``.
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -76,6 +98,7 @@ FULL_SIDE, FULL_H, FULL_W = 256, 768, 1024
 FRAMES = 10
 TRAIN_SIZES = ((256, 256), (FULL_H, FULL_W))
 TRAIN_STEPS = 4
+GAUSS_TRAIN_STEPS = 3
 DESCENT_STEPS = 20
 ORBITS = [(30.0, 20.0), (210.0, 20.0), (120.0, 10.0), (300.0, -10.0), (20.0, 70.0), (20.0, -70.0)]
 KERNELS = {
@@ -83,6 +106,8 @@ KERNELS = {
     "slab_replay": ("volym_tpu_torch/ops/csrc/slab_replay.cu", "volym_tpu/ops/slab_bwd_kernel.py:169"),
     "lookahead_straight": ("volym_tpu_torch/ops/csrc/lookahead.cu", "volym_tpu/ops/lookahead_kernel.py:125"),
     "lookahead_cone": ("volym_tpu_torch/ops/csrc/lookahead.cu", "volym_tpu/ops/lookahead_kernel.py:262"),
+    "voxel_grad": ("volym_tpu_torch/ops/csrc/voxel_grad.cu", "volym_tpu/ops/slab_bwd_kernel.py:1127"),
+    "voxel_grad_shaded": ("volym_tpu_torch/ops/csrc/voxel_grad.cu", "volym_tpu/ops/slab_bwd_kernel.py:1198"),
 }
 #: the sources to build, one nvcc each: csrc/<name>.cu
 SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()})
@@ -95,6 +120,13 @@ F32_OPS_PER_S = 67e12
 #: unshaded replay step with its TF chain and 4-tap scatter
 MARCH_OPS_PER_STEP = 70
 REPLAY_OPS_PER_STEP = 150
+#: f32 operations of the smoothing stencil a sampled step (smooth_density in
+#: csrc/slab_common.cuh: 5 taps of ~57, the offset, the box test and 7 hats
+#: with their products and sums) plus the window's one new plain sample
+SMOOTH_OPS_PER_STEP = 300
+#: f32 operations of the scatter (csrc/voxel_grad.cu) a nonzero channel:
+#: the coordinates and the snap once, and the 4 weights and products
+SCATTER_OPS_PER_ENTRY = 30
 #: f32 operations of the gate kernels (csrc/lookahead.cu), counted from the
 #: source: every swept step of a live ray (t and the window compares), a
 #: valid step's range test (straight: norm_pos, the quotient, the compare
@@ -194,6 +226,38 @@ def gate_ops(feats, cone_feats, levels, gate) -> int:
             + CONE_OPS_INBOX * int(inbox) + CONE_OPS_MAIN * int(gate.sum()))
 
 
+def scatter_indices(feats, dd, vol_shape, sign, params):
+    """What the scatter (B3, or B4 for a 4-channel ``dd``) adds, as one
+    ``index_add_``: the flat indices of every nonzero per-step cotangent's
+    bilinear corners (or box texel) in its grid, the grids stacked (d_vol,
+    then the 3 d_grad channels), the weighted values, and the stacked size."""
+    import torch
+
+    from volym_tpu_torch.config import Interpolation
+    from volym_tpu_torch.render import slab
+
+    f = feats.reshape(slab.N_FEATURES, -1)
+    n, nr, nc = vol_shape
+    d = dd.reshape(n, dd.shape[1] if dd.dim() == 4 else 1, -1)
+    bilinear = params.interpolation == Interpolation.TRILINEAR
+    idx, vals = [], []
+    for j in range(n):
+        k, _, rows_c, cols_c = slab._step_coords(f, j, n, nr, nc, sign, params.subtexel_bits)
+        for c in range(d.shape[1]):
+            nz = torch.nonzero(d[j, c]).squeeze(1)
+            if not nz.numel():
+                continue
+            v, base = d[j, c][nz], (c * n + k) * nr * nc
+            if bilinear:
+                r0, r1, c0, c1, tr, tc = slab._bilinear_taps(rows_c[nz], cols_c[nz], nr, nc)
+                idx += [base + r0 * nc + c0, base + r0 * nc + c1, base + r1 * nc + c0, base + r1 * nc + c1]
+                vals += [v * (1 - tr) * (1 - tc), v * (1 - tr) * tc, v * tr * (1 - tc), v * tr * tc]
+            else:
+                idx.append(base + slab._nearest_tap(rows_c[nz], cols_c[nz], nr, nc))
+                vals.append(v)
+    return torch.cat(idx), torch.cat(vals), d.shape[1] * n * nr * nc
+
+
 def device_profile(fn, reps, top=6):
     """``torch.profiler`` over ``reps`` calls after a warm-up: the wall time
     a call (with the profiler's overhead), the device time a call summed
@@ -226,7 +290,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU")
     from volym_tpu_torch import BENCHMARK_PARAMS, Camera, RenderParams, Scene, cli, convert, parity
-    from volym_tpu_torch.ops import _build, lookahead, slab_march, slab_replay
+    from volym_tpu_torch.ops import _build, lookahead, slab_march, slab_replay, voxel_grad
     from volym_tpu_torch.render import slab
     from volym_tpu_torch.render.renderer import make_renderer
 
@@ -338,7 +402,7 @@ def main() -> int:
     # B6 and B7 against the plain gate, and B1 with the gate against the
     # plain march with it, bit for bit, on the three-level scene
     small3 = convert.scene(*three_level_scene(SMALL_SIDE), device=dev)
-    n_gate, n_gated, n_changed = 0, 0, 0
+    n_gate, n_gated, n_changed, n_gated_smooth = 0, 0, 0, 0
     for h, v in ORBITS:
         cam = Camera(aspect=SMALL_W / SMALL_H, distance=1.3).orbit(h, v, 0.0).matrices()
         view = slab.dominant_axis(cam)
@@ -374,15 +438,91 @@ def main() -> int:
                                          f"{float((img - plain).abs().max()):.3e}")
                 n_gated += 1
                 n_changed += not torch.equal(plain, slab.march_slabs(feats, vol, lut, sign, p, grad, u8))
-    log(f"small: gate kernels == plain gate bit for bit in {n_gate}/24 cases; march with the gate == plain "
-        f"bit for bit in {n_gated}/24, the gate changed the image in {n_changed}")
-    if (n_gate, n_gated) != (24, 24) or not n_changed:
-        raise AssertionError(f"{n_gate}, {n_gated} gate cases ran, expected 24, 24; {n_changed} changed the image")
 
-    # phase 4: serving at full size
+                # the gate with Gaussian smoothing (same planes, same gate)
+                ps = p.replace(use_gaussian_smoothing=True)
+                img = slab_march.march_cuda(feats, vol, lut, sign, ps, grad, u8=u8, gate=words)
+                plain_s = slab.march_slabs(feats, vol, lut, sign, ps, grad, u8, gate=want)
+                torch.cuda.synchronize()
+                if not torch.equal(img, plain_s):
+                    raise AssertionError(f"{label}: the smoothed march with the gate differs from the plain one by "
+                                         f"{float((img - plain_s).abs().max()):.3e}")
+                n_gated_smooth += 1
+    log(f"small: gate kernels == plain gate bit for bit in {n_gate}/24 cases; march with the gate == plain "
+        f"bit for bit in {n_gated}/24, the gate changed the image in {n_changed}; with smoothing too in "
+        f"{n_gated_smooth}/24")
+    if (n_gate, n_gated, n_gated_smooth) != (24, 24, 24) or not n_changed:
+        raise AssertionError(f"{n_gate}, {n_gated}, {n_gated_smooth} gate cases ran, expected 24, 24, 24; "
+                             f"{n_changed} changed the image")
+
+    # Gaussian smoothing: B1 (bit for bit), B2 unfused on both routes and
+    # B3/B4 against their plain versions, on the 256^3 bonsai
     t0 = time.perf_counter()
     scene = Scene.synthetic("bonsai", side=FULL_SIDE, seed=0, device=dev)
     log(f"scene: {FULL_SIDE}^3 synthetic bonsai made in {time.perf_counter() - t0:.1f} s")
+    n_smooth, n_smooth_replay, n_scatter, n_engaged = 0, 0, 0, 0
+    for h, v in ORBITS:
+        cam = Camera(aspect=SMALL_W / SMALL_H, distance=1.3).orbit(h, v, 0.0).matrices()
+        view = slab.dominant_axis(cam)
+        for interp in ("nearest", "trilinear"):
+            for stream, step, planes in (("u8", 0.005, FULL_SIDE), ("f32", 0.01, FULL_SIDE // 2)):
+                for shading in (False, True):
+                    label = f"smoothing view {view} {interp} {stream} shading={shading}"
+                    p = RenderParams(
+                        use_gaussian_smoothing=True, interpolation=interp, raymarching_step_size=step,
+                        use_shading=shading, u8_volume=True, density_threshold=0.12, camera_grads=False,
+                    )
+                    feats, vol, lut, sign, grad, u8 = slab_march.prepare(scene, cam, p, SMALL_H, SMALL_W)
+                    if u8 != (stream == "u8") or vol.shape[0] != planes:
+                        raise AssertionError(f"{label}: expected the {stream} stream on {planes} planes")
+                    img = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8)
+                    img_e, dens = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, emit_density=True)
+                    plain_img, plain_dens = slab.march_slabs(feats, vol, lut, sign, p, grad, u8, emit_density=True)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(img, plain_img) and torch.equal(img_e, img)):
+                        raise AssertionError(f"{label}: the image differs from the plain march by "
+                                             f"{float((img - plain_img).abs().max()):.3e}")
+                    if not torch.equal(dens, plain_dens):
+                        raise AssertionError(f"{label}: the residual differs from the plain march")
+                    n_smooth += 1
+                    n_engaged += not torch.equal(
+                        img, slab_march.march_cuda(feats, vol, lut, sign, p.replace(use_gaussian_smoothing=False),
+                                                   grad, u8=u8))
+
+                    plain_dd, plain_lut = slab.replay_slabs(feats, vol, lut, sign, p, img, g_small, grad, u8, dens)
+                    routes = {}
+                    for route, d in (("stored", dens), ("re-sampled", None)):
+                        dd, d_lut = slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g_small, grad, u8, d)
+                        torch.cuda.synchronize()
+                        if not (bool(torch.isfinite(dd).all()) and bool(torch.isfinite(d_lut).all())):
+                            raise AssertionError(f"{label} {route}: non-finite")
+                        hold("slab_replay", plain_dd, dd, f"{label} {route} dd")
+                        hold("slab_replay", plain_lut, d_lut, f"{label} {route} d_lut", lut)
+                        routes[route] = dd
+                        n_smooth_replay += 1
+                    if not torch.equal(routes["stored"], routes["re-sampled"]):
+                        raise AssertionError(f"{label}: the two replay routes give different cotangents")
+
+                    kernel = "voxel_grad_shaded" if shading else "voxel_grad"
+                    folded = slab_march.fold_smoothed(feats, plain_dd, vol.shape, p)
+                    d_vol, d_grad = voxel_grad.scatter_cuda(feats, folded, vol.shape, sign, p)
+                    plain_vol, plain_grad = slab.voxel_grad(feats, folded, vol.shape, sign, p)
+                    torch.cuda.synchronize()
+                    hold(kernel, plain_vol, d_vol, f"{label} d_vol")
+                    if shading:
+                        hold(kernel, plain_grad, d_grad, f"{label} d_grad")
+                    if float(plain_vol.abs().max()) <= 0.0:
+                        raise AssertionError(f"{label}: zero d_vol")
+                    n_scatter += 1
+    log(f"small smoothing: march with residual == plain bit for bit in {n_smooth}/48 cases (smoothing changed "
+        f"the image in {n_engaged}); unfused replay == plain in {n_smooth_replay}/96, stored and re-sampled, the "
+        f"two routes bit for bit; B3/B4 == plain in {n_scatter}/48 (max abs err {err['voxel_grad']:.3e} / "
+        f"{err['voxel_grad_shaded']:.3e}, over its scale {rel['voxel_grad']:.3e} / {rel['voxel_grad_shaded']:.3e})")
+    if (n_smooth, n_smooth_replay, n_scatter) != (48, 96, 48) or n_engaged != 48:
+        raise AssertionError(f"{n_smooth}, {n_smooth_replay}, {n_scatter} smoothing cases ran, expected 48, 96, 48; "
+                             f"smoothing changed {n_engaged} images")
+
+    # phase 4: serving at full size
     configs = {
         "bench": RenderParams(
             interpolation="trilinear", density_threshold=0.15, raymarching_step_size=0.005,
@@ -393,6 +533,11 @@ def main() -> int:
             use_shading=True, use_gaussian_smoothing=False, u8_volume=True,
         ),
     }
+    configs["bench_gaussian"] = configs["bench"].replace(use_gaussian_smoothing=True)
+    # the flags of `screenshot` with no options: smoothing on
+    configs["cli_default_gaussian"] = cli._params(cli.build_parser().parse_args(["screenshot"]))
+    if configs["cli_default_gaussian"] != configs["cli_default"].replace(use_gaussian_smoothing=True):
+        raise AssertionError(f"the CLI default is {configs['cli_default_gaussian']}")
     renderers = {
         name: make_renderer(scene, p, FULL_H, FULL_W, backend="slab_cuda", device=dev) for name, p in configs.items()
     }
@@ -431,6 +576,9 @@ def main() -> int:
         cm0 = cams[name][0].matrices()
         plain = slab_march.render(scene, cm0, p, FULL_H, FULL_W, march_fn=slab.march_slabs)
         r, _ = hold("slab_march", plain, img, f"{name} frame 0 vs plain")
+        if p.use_gaussian_smoothing and not torch.equal(plain, img):
+            raise AssertionError(f"{name}: frame 0 differs from the plain version by {r.max_abs_err:.3e}")
+        del plain
 
         feats, vol, lut, sign, grad, u8 = slab_march.prepare(scene, cm0, p, FULL_H, FULL_W)
         march_ms = cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8), 20)
@@ -438,15 +586,19 @@ def main() -> int:
         frame_ms = cuda_ms(lambda: renderers[name](cm0), 10)
         plain_frame_ms = cuda_ms(lambda: slab_march.render(scene, cm0, p, FULL_H, FULL_W, march_fn=slab.march_slabs), 3)
         rays = FULL_H * FULL_W
-        # composited steps of this frame, for the operations bound
+        # composited (and, for the stencil, sampled) steps of this frame,
+        # for the operations bound
         _, dens = slab.march_slabs(feats, vol, lut, sign, p, grad, u8, emit_density=True)
         threshold = slab.march_knobs(p, u8)[0]
-        composited = int((dens.reshape(vol.shape[0], -1, rays)[:, 0] >= threshold).sum())
-        del dens
-        bound_ms, bound_by = bound(nbytes(feats, vol, lut, grad) + rays * 16, composited * MARCH_OPS_PER_STEP)
+        d0 = dens.reshape(vol.shape[0], -1, rays)[:, 0]
+        composited, sampled = int((d0 >= threshold).sum()), int((d0 != 0.0).sum())
+        del dens, d0
+        ops = composited * MARCH_OPS_PER_STEP + (sampled * SMOOTH_OPS_PER_STEP if p.use_gaussian_smoothing else 0)
+        bound_ms, bound_by = bound(nbytes(feats, vol, lut, grad) + rays * 16, ops)
         results[name] = dict(
-            planes=int(vol.shape[0]), u8=u8, march_ms=march_ms, plain_march_ms=plain_march_ms,
-            bound_ms=bound_ms, bound_by=bound_by, composited_steps=composited,
+            planes=int(vol.shape[0]), u8=u8, smoothing=p.use_gaussian_smoothing, march_ms=march_ms,
+            plain_march_ms=plain_march_ms, bound_ms=bound_ms, bound_by=bound_by, composited_steps=composited,
+            sampled_steps=sampled,
             frame_ms=frame_ms, plain_frame_ms=plain_frame_ms,
             rays_per_s=rays / (frame_ms / 1e3), plain_rays_per_s=rays / (plain_frame_ms / 1e3),
             max_abs_err=r.max_abs_err, knife_edge_share=r.edge_frac, hit_share=float(hit.float().mean()),
@@ -676,6 +828,154 @@ def main() -> int:
         )
     log(f"replay routes at {FULL_H}x{FULL_W}, fwd + bwd kernels: {json.dumps(routes)}")
 
+    # phase 6b: the training step under Gaussian smoothing: B1 with the
+    # stencil, B2 unfused, the stencil's transpose (torch) and B3 or B4
+    gauss_train = {name: configs[name].replace(camera_grads=False) for name in ("bench_gaussian", "cli_default_gaussian")}
+    gtrainers = {}
+    for name, p in gauss_train.items():
+        for h, w in TRAIN_SIZES:
+            s = leaf_scene(scene.volume, scene.tf_lut)
+            cm = Camera(aspect=w / h, distance=1.0).orbit(30.0, 20.0, 0.0).matrices()
+            gtrainers[(name, h, w)] = (p, s, cm, make_renderer(s, p, h, w, backend="slab_cuda", device=dev,
+                                                                  differentiable=True))
+
+    def gcounts():
+        return slab_march.LAUNCHES, slab_replay.LAUNCHES, voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES
+
+    gstep0, gper = {}, {}
+    # the smoothed training path starts here
+    slab_march.LAUNCHES = slab_replay.LAUNCHES = voxel_grad.LAUNCHES = voxel_grad.SHADED_LAUNCHES = 0
+    for key, (p, s, cm, render) in gtrainers.items():
+        before = gcounts()
+        for i in range(GAUSS_TRAIN_STEPS):
+            s.volume.grad = s.tf_lut.grad = None
+            img = render(cm)
+            img.sum().backward()
+            if i == 0:
+                gstep0[key] = (img.detach().clone(), s.volume.grad.clone(), s.tf_lut.grad.clone())
+        torch.cuda.synchronize()
+        gper[key] = tuple(a - b for a, b in zip(gcounts(), before))
+    gtrain_launches = gcounts()  # the smoothed training path ends here
+    for (name, h, w), launched in gper.items():
+        shaded = gauss_train[name].use_shading
+        want = (GAUSS_TRAIN_STEPS, GAUSS_TRAIN_STEPS, 0 if shaded else GAUSS_TRAIN_STEPS, GAUSS_TRAIN_STEPS if shaded else 0)
+        if launched != want:
+            raise AssertionError(f"smoothed training {name} {h}x{w}: (march, replay, B3, B4) launches {launched}, "
+                                 f"expected {want}")
+    log(f"smoothed training: (march, replay, B3, B4) launches {gtrain_launches} for {len(gtrainers)} x "
+        f"{GAUSS_TRAIN_STEPS} steps ({ {f'{k[0]} {k[1]}x{k[2]}': v for k, v in gper.items()} })")
+
+    gtraining = {}
+    for key, (p, s, cm, render) in gtrainers.items():
+        name, h, w = key
+        rays = h * w
+        shaded = p.use_shading
+        kernel = "voxel_grad_shaded" if shaded else "voxel_grad"
+        label = f"smoothed training {name} {h}x{w}"
+        img, d_vol, d_lut = gstep0[key]
+        if not (bool(torch.isfinite(img).all()) and bool(torch.isfinite(d_vol).all()) and bool(torch.isfinite(d_lut).all())):
+            raise AssertionError(f"{label}: non-finite step 0")
+        if float(d_vol.abs().max()) <= 0.0 or float(d_lut.abs().max()) <= 0.0:
+            raise AssertionError(f"{label}: zero gradients")
+
+        def plain_step(p=p, cm=cm, h=h, w=w):
+            ps = leaf_scene(scene.volume, scene.tf_lut)
+            out = slab.render_diff(ps, cm, p, h, w)
+            out.sum().backward()
+            return out.detach(), ps.volume.grad, ps.tf_lut.grad
+
+        t0 = time.perf_counter()
+        plain_img, plain_vol, plain_lut = plain_step()
+        torch.cuda.synchronize()
+        plain_step_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(plain_img, img):
+            raise AssertionError(f"{label}: the image differs from the plain step's")
+        agree = {}
+        r, _ = hold(kernel, plain_vol, d_vol, f"{label} step 0 d_volume")
+        agree["d_volume"] = dict(max_abs_err=r.max_abs_err, scale=r.scale, edge_share=r.edge_frac)
+        r, worst = hold("slab_replay", plain_lut, d_lut, f"{label} step 0 d_lut", scene.tf_lut)
+        agree["d_lut"] = dict(max_abs_err=r.max_abs_err, scale=r.scale, edge_share=r.edge_frac,
+                              opaque_err_over_magnitude=worst)
+        del plain_img, plain_vol, plain_lut
+
+        feats, vol, lut, sign, grad, u8 = slab_march.prepare(scene, cm, p, h, w)
+        stored = slab_replay.use_stored_density(p, vol.shape[0], rays)
+        out, dens = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, emit_density=True)
+        g = torch.ones_like(out)
+        dd, _ = slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8, dens)
+        dd0 = dd[:, 0] if shaded else dd
+        bilinear = p.interpolation.value == "trilinear"
+        folded = slab_march.fold_smoothed(feats, dd.clone(), vol.shape, p)
+        row = dict(
+            planes=int(vol.shape[0]), u8=u8, shading=shaded, interpolation=p.interpolation.value,
+            route="stored" if stored else "re-sampled", residual_mib=dens.numel() * 4 / 2**20,
+            dd_mib=dd.numel() * 4 / 2**20,
+            fwd_residual_ms=cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8,
+                                                                  emit_density=True), 10),
+            fwd_ms=cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8), 10),
+            replay_stored_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8, dens), 10),
+            replay_resampled_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8), 10),
+            transpose_ms=cuda_ms(lambda: slab.smooth_dd_transpose(feats, dd0, vol.shape[1], vol.shape[2], bilinear), 5),
+            scatter_ms=cuda_ms(lambda: voxel_grad.scatter_cuda(feats, folded, vol.shape, sign, p), 10),
+        )
+        d_v, d_g = voxel_grad.scatter_cuda(feats, folded, vol.shape, sign, p)
+        plain_v, plain_g = slab.voxel_grad(feats, folded, vol.shape, sign, p)
+        torch.cuda.synchronize()
+        hold(kernel, plain_v, d_v, f"{label} scatter d_vol")
+        if shaded:
+            hold(kernel, plain_g, d_g, f"{label} scatter d_grad")
+        # B2 unfused on both routes against the plain replay
+        plain_dd, plain_dl = slab.replay_slabs(feats, vol, lut, sign, p, out, g, grad, u8, dens)
+        for route, d in (("stored", dens), ("re-sampled", None)):
+            got_dd, got_dl = slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8, d)
+            hold("slab_replay", plain_dd, got_dd, f"{label} {route} replay dd")
+            hold("slab_replay", plain_dl, got_dl, f"{label} {route} replay d_lut", lut)
+        del plain_dd, plain_dl, got_dd, got_dl
+        idx, vals, size = scatter_indices(feats, folded, vol.shape, sign, p)
+        row["scatter_library_ms"] = cuda_ms(
+            lambda: torch.zeros(size, dtype=torch.float32, device=dev).index_add_(0, idx, vals), 10)
+        lib = torch.zeros(size, dtype=torch.float32, device=dev).index_add_(0, idx, vals)
+        parity.check_close(lib[: d_v.numel()].reshape(d_v.shape), d_v, f"{label} index_add_ vs B3/B4")
+        row["plain_scatter_ms"] = cuda_ms(lambda: slab.voxel_grad(feats, folded, vol.shape, sign, p), 1)
+        row["plain_replay_ms"] = cuda_ms(lambda: slab.replay_slabs(feats, vol, lut, sign, p, out, g, grad, u8, dens), 1)
+        row["plain_fwd_ms"] = cuda_ms(lambda: slab.march_slabs(feats, vol, lut, sign, p, grad, u8), 1)
+
+        def kernel_step(s=s, render=render, cm=cm):
+            s.volume.grad = s.tf_lut.grad = None
+            render(cm).sum().backward()
+
+        row["step_ms"] = cuda_ms(kernel_step, 5)
+        row["plain_step_ms"] = plain_step_ms
+        row["rays_per_s"] = rays / (row["step_ms"] / 1e3)
+        row["profile"] = device_profile(kernel_step, 3)
+        if (h, w) == (FULL_H, FULL_W):
+            # the re-sampled route, forced: a zero residual budget
+            budget = slab_replay.STORE_DENSITY_BUDGET_MB
+            slab_replay.STORE_DENSITY_BUDGET_MB = 0
+            try:
+                kernel_step()
+                torch.cuda.synchronize()
+                r, _ = hold(kernel, d_vol, s.volume.grad, f"{label} re-sampled route vs stored d_volume")
+                hold("slab_replay", d_lut, s.tf_lut.grad, f"{label} re-sampled route vs stored d_lut", scene.tf_lut)
+                row["forced_resampled"] = dict(step_ms=cuda_ms(kernel_step, 5), d_volume_max_abs_err=r.max_abs_err)
+            finally:
+                slab_replay.STORE_DENSITY_BUDGET_MB = budget
+
+        # bounds: inputs once, outputs once; operations from this run's steps
+        threshold = slab.march_knobs(p, u8)[0]
+        d0 = dens[:, 0] if shaded else dens
+        composited, sampled = int((d0 >= threshold).sum()), int((d0 != 0.0).sum())
+        entries = int((folded != 0.0).sum())
+        row["fwd_bound"] = bound(nbytes(feats, vol, lut, grad, out, dens),
+                                 composited * MARCH_OPS_PER_STEP + sampled * SMOOTH_OPS_PER_STEP)
+        row["replay_bound"] = bound(nbytes(feats, lut, out, g, dd, lut) + int((dens != 0.0).sum()) * 4,
+                                    composited * REPLAY_OPS_PER_STEP)
+        row["scatter_bound"] = bound(nbytes(feats, folded, d_v, d_g), entries * SCATTER_OPS_PER_ENTRY)
+        row.update(composited_steps=composited, sampled_steps=sampled, scatter_entries=entries, step0=agree)
+        gtraining[f"{name} {h}x{w}"] = row
+        log(f"{label}: {json.dumps(row)}")
+        del out, dens, dd, dd0, folded, g, idx, vals, lib, d_v, d_g, plain_v, plain_g
+
     # phase 7: a few descent steps on the f32 stream
     fit_p = train_p.replace(u8_volume=False)
     dh, dw = TRAIN_SIZES[0]
@@ -703,7 +1003,7 @@ def main() -> int:
         for flags in ([], ["--importance", "--cone", "--scene", "teapot"]):
             out = Path(tmp) / "shot.png"
             before = counts()
-            rc = cli.main(["screenshot", "--no-gaussian", *flags, "--output", str(out)])
+            rc = cli.main(["screenshot", *flags, "--output", str(out)])
             data = out.read_bytes() if out.exists() else b""
             if rc != 0 or data[:8] != b"\x89PNG\r\n\x1a\n":
                 raise AssertionError(f"CLI screenshot {flags} failed (rc {rc}, {len(data)} bytes)")
@@ -711,7 +1011,7 @@ def main() -> int:
             if launched != ((1, 0, 1) if flags else (1, 0, 0)):
                 raise AssertionError(f"CLI screenshot {flags}: (march, straight, cone) launches {launched}")
             out.unlink()
-            log(f"cli: screenshot --no-gaussian {' '.join(flags)} wrote a {len(data)}-byte PNG; "
+            log(f"cli: screenshot {' '.join(flags)} (smoothing on) wrote a {len(data)}-byte PNG; "
                 f"(march, straight, cone) launches {launched}")
 
     bench, step = results["bench"], training[f"{FULL_H}x{FULL_W}"]
@@ -730,11 +1030,23 @@ def main() -> int:
         la = la_results[name]
         rows[kernel] = dict(launches=launches, ms=la["gate_ms"], plain_ms=la["plain_gate_ms"],
                             bound_ms=la["gate_bound_ms"], bound_by=la["gate_bound_by"])
+    # B3 and B4 at 1024x768 in the smoothed bench step and CLI default
+    for kernel, name, launches in (("voxel_grad", "bench_gaussian", gtrain_launches[2]),
+                                   ("voxel_grad_shaded", "cli_default_gaussian", gtrain_launches[3])):
+        g = gtraining[f"{name} {FULL_H}x{FULL_W}"]
+        rows[kernel] = dict(launches=launches, ms=g["scatter_ms"], plain_ms=g["plain_scatter_ms"],
+                            bound_ms=g["scatter_bound"][0], bound_by=g["scatter_bound"][1],
+                            library_ms=g["scatter_library_ms"],
+                            library="index_add_ of the precomputed corner indices and weights, "
+                                    "their computation excluded")
+    rows["slab_march"]["launches"] += gtrain_launches[0]
+    rows["slab_replay"]["launches"] += gtrain_launches[1]
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
          "launches": row["launches"], "max_abs_err": err[name], "max_rel_err": rel[name],
          "ms": row["ms"], "plain_ms": row["plain_ms"],
-         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None}
+         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
+         **({"library": row["library"]} if "library" in row else {})}
         for name, row in rows.items()
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""The CUDA march, replay and look-ahead gate kernels against their plain
-PyTorch versions, on the card.
+"""The CUDA march, replay, voxel-gradient scatter and look-ahead gate kernels
+against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: these skip where ``torch.cuda.is_available()`` is false.
 Run them on a GPU machine with
@@ -12,7 +12,7 @@ import torch
 
 from chip_smoke import three_level_scene
 from volym_tpu_torch import Camera, RenderParams, Scene, convert, parity
-from volym_tpu_torch.ops import lookahead, slab_march, slab_replay
+from volym_tpu_torch.ops import lookahead, slab_march, slab_replay, voxel_grad
 from volym_tpu_torch.render import slab
 from volym_tpu_torch.render.renderer import make_renderer
 
@@ -231,3 +231,123 @@ def test_gate_cuda_checks_inputs(scene3):
         slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, gate=words[:-1])
     with pytest.raises(NotImplementedError, match="residual"):
         slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, gate=words, emit_density=True)
+
+
+@pytest.fixture(scope="module")
+def scene256(device):
+    """256^3, so that every row of the smoothing stencil carries weight
+    (|u| up to 2.56 steps at 256 planes)."""
+    return Scene.synthetic("bonsai", side=256, seed=1, device=device)
+
+
+def _smooth_params(interp, stream, shading):
+    """Smoothing on the 256^3 scene: u8 at step .005 (256 native planes) or
+    f32 at step .01 (128 resampled planes)."""
+    return RenderParams(
+        use_gaussian_smoothing=True, interpolation=interp, use_shading=shading, u8_volume=True, camera_grads=False,
+        raymarching_step_size=0.005 if stream == "u8" else 0.01,
+    )
+
+
+SMOOTH_MODES = [(i, s, sh) for i in ("nearest", "trilinear") for s in ("u8", "f32") for sh in (False, True)]
+
+
+def _smooth_inputs(scene256, h, v, interp, stream, shading):
+    p = _smooth_params(interp, stream, shading)
+    cam = Camera(aspect=W / H, distance=1.3).orbit(h, v, 0.0).matrices()
+    feats, vol, lut, sign, grad, u8 = slab_march.prepare(scene256, cam, p, H, W)
+    assert u8 == (stream == "u8") and vol.shape[0] == (256 if stream == "u8" else 128)
+    return p, feats, vol, lut, sign, grad, u8
+
+
+@pytest.mark.parametrize("interp,stream,shading", SMOOTH_MODES)
+@pytest.mark.parametrize("h,v", ORBITS[:2])
+def test_smooth_march_matches_plain_bitwise(scene256, h, v, interp, stream, shading):
+    """B1 with smoothing against the plain march on the card, image and
+    residual bit for bit, and the image unchanged by the residual."""
+    p, feats, vol, lut, sign, grad, u8 = _smooth_inputs(scene256, h, v, interp, stream, shading)
+    img = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8)
+    img_e, dens = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, emit_density=True)
+    plain_img, plain_dens = slab.march_slabs(feats, vol, lut, sign, p, grad, u8, emit_density=True)
+    torch.cuda.synchronize()
+    assert torch.equal(img, img_e) and torch.equal(img, plain_img)
+    assert torch.equal(dens, plain_dens)
+    assert not torch.equal(img, slab.march_slabs(feats, vol, lut, sign, p.replace(use_gaussian_smoothing=False),
+                                                 grad, u8))
+
+
+@pytest.mark.parametrize("interp,stream,shading", SMOOTH_MODES)
+@pytest.mark.parametrize("h,v", ORBITS[:2])
+def test_smooth_replay_and_scatter_match_plain(scene256, h, v, interp, stream, shading):
+    """B2 unfused against the plain replay from the residual and
+    re-sampled (the per-step cotangents by the repo rule, the two kernel
+    routes bit for bit: no atomics write them; d_lut by the two-group
+    rule), then B3 (unshaded) or B4 (shaded) against the plain scatter on
+    the folded cotangents, by the repo rule (atomics reorder the sums)."""
+    p, feats, vol, lut, sign, grad, u8 = _smooth_inputs(scene256, h, v, interp, stream, shading)
+    img, dens = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, emit_density=True)
+    g = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (H, W, 4)).astype(np.float32)).to(img.device)
+    want_dd, want_lut = slab.replay_slabs(feats, vol, lut, sign, p, img, g, grad, u8, dens)
+    got = {route: slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g, grad, u8, d)
+           for route, d in (("stored", dens), ("re-sampled", None))}
+    torch.cuda.synchronize()
+    for route, (dd, d_lut) in got.items():
+        parity.check_close(want_dd, dd, f"{route} dd")
+        parity.check_lut_grad(want_lut, d_lut, lut, f"{route} d_lut")
+    assert torch.equal(got["stored"][0], got["re-sampled"][0])
+    assert float(want_dd.abs().max()) > 0
+    dd = slab_march.fold_smoothed(feats, want_dd.clone(), vol.shape, p)
+    before = (voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES)
+    d_vol, d_grad = voxel_grad.scatter_cuda(feats, dd, vol.shape, sign, p)
+    assert (voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES) == (before[0] + (not shading), before[1] + shading)
+    plain_vol, plain_grad = slab.voxel_grad(feats, dd, vol.shape, sign, p)
+    torch.cuda.synchronize()
+    parity.check_close(plain_vol, d_vol, "d_vol")
+    if shading:
+        parity.check_close(plain_grad, d_grad, "d_grad")
+    else:
+        assert d_grad is None
+
+
+@pytest.mark.parametrize("shading", [False, True])
+def test_smooth_differentiable_renderer_counts_launches(scene256, device, shading):
+    """The training step under smoothing launches B1, B2 and B3 (or B4 when
+    shaded) once each, and its gradients agree with the plain step's."""
+    p = _smooth_params("trilinear" if not shading else "nearest", "u8" if not shading else "f32", shading)
+    vol = scene256.volume.clone().requires_grad_(True)
+    lut = scene256.tf_lut.clone().requires_grad_(True)
+    render = make_renderer(Scene(vol, scene256.importance, lut), p, H, W, backend="slab_cuda", device=device,
+                           differentiable=True)
+    cam = Camera(aspect=W / H).orbit(10.0, 5.0, 0.0).matrices()
+    counts = (slab_march.LAUNCHES, slab_replay.LAUNCHES, voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES)
+    render(cam).sum().backward()
+    now = (slab_march.LAUNCHES, slab_replay.LAUNCHES, voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES)
+    assert tuple(a - b for a, b in zip(now, counts)) == (1, 1, int(not shading), int(shading))
+    plain_vol = scene256.volume.clone().requires_grad_(True)
+    plain_lut = scene256.tf_lut.clone().requires_grad_(True)
+    slab.render_diff(Scene(plain_vol, scene256.importance, plain_lut), cam, p, H, W).sum().backward()
+    parity.check_close(plain_vol.grad, vol.grad, "d_volume")
+    parity.check_lut_grad(plain_lut.grad, lut.grad, scene256.tf_lut, "d_lut")
+
+
+def test_default_renderer_smooths_on_the_card(scene256, device):
+    """``RenderParams()`` (smoothing on, nearest, shaded, step .01 -> 128
+    planes) through the CUDA march, bit for bit with the plain render."""
+    render = make_renderer(scene256, RenderParams(), H, W, device=device)
+    cam = Camera(aspect=W / H).orbit(10.0, 5.0, 0.0).matrices()
+    before = slab_march.LAUNCHES
+    img = render(cam)
+    assert slab_march.LAUNCHES == before + 1
+    assert torch.equal(img, slab.render(scene256, cam, RenderParams(), H, W))
+
+
+def test_smoothing_kernels_check_inputs(scene256):
+    p, feats, vol, lut, sign, grad, u8 = _smooth_inputs(scene256, 30.0, 20.0, "trilinear", "u8", True)
+    big = torch.zeros((304, vol.shape[1], vol.shape[2]), dtype=vol.dtype, device=vol.device)
+    with pytest.raises(NotImplementedError, match="300"):
+        slab_march.march_cuda(feats, big, lut, sign, p, grad.new_zeros((3, *big.shape)), u8=u8)
+    dd = torch.zeros((vol.shape[0], 4, H, W), device=vol.device)
+    with pytest.raises(ValueError, match="dd"):
+        voxel_grad.scatter_cuda(feats, dd[:, :3], vol.shape, sign, p)
+    with pytest.raises(ValueError, match="on cpu"):
+        voxel_grad.scatter_cuda(feats, dd.cpu(), vol.shape, sign, p)

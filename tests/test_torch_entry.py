@@ -50,7 +50,8 @@ def test_port_never_imports_jax():
     code = (
         "import sys, volym_tpu_torch, volym_tpu_torch.cli, volym_tpu_torch.convert, "
         "volym_tpu_torch.parity, volym_tpu_torch.io, volym_tpu_torch.ops.slab_march, volym_tpu_torch.ops.slab_replay, "
-        "volym_tpu_torch.ops.lookahead, volym_tpu_torch.ops._build, volym_tpu_torch.render.renderer, "
+        "volym_tpu_torch.ops.lookahead, volym_tpu_torch.ops.voxel_grad, volym_tpu_torch.ops._build, "
+        "volym_tpu_torch.render.renderer, "
         "volym_tpu_torch.render.golden\n"
         "volym_tpu_torch.cli.build_parser().parse_args(['screenshot'])\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
@@ -84,7 +85,7 @@ def test_cli_run_saves_last_frame(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize(
     "flags",
-    [[], ["--no-gaussian", "--first-hit"], ["--importance", "--cone"],
+    [["--first-hit"], ["--no-gaussian", "--first-hit"], ["--importance", "--cone", "--coloring"],
      ["--no-gaussian", "--coloring"], ["--no-gaussian", "--profile", "x"]],
 )
 def test_cli_unported_modes_raise(tmp_path, flags):
@@ -96,7 +97,7 @@ def test_cli_unported_modes_raise(tmp_path, flags):
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(use_gaussian_smoothing=True), dict(use_importance_coloring=True),
+    [dict(use_gaussian_smoothing=True, use_opacity=False), dict(use_importance_coloring=True),
      dict(use_importance_rendering=True, use_importance_coloring=True), dict(use_opacity=False)],
 )
 def test_renderer_unported_modes_raise(kw):
@@ -114,7 +115,8 @@ def test_renderer_differentiable_raises():
     with pytest.raises(NotImplementedError, match="camera gradients"):
         slab_march.render_diff(scene, Camera().matrices(), BASE, 8, 8)
     diff = BASE.replace(camera_grads=False)
-    for kw, name in ((dict(use_gaussian_smoothing=True), "smoothing"), (dict(use_importance_coloring=True), "coloring"),
+    for kw, name in ((dict(use_gaussian_smoothing=True, use_opacity=False), "first-hit"),
+                     (dict(use_importance_coloring=True), "coloring"),
                      (dict(use_importance_rendering=True), "look-ahead"), (dict(use_opacity=False), "first-hit")):
         with pytest.raises(NotImplementedError, match=name):
             make_renderer(scene, diff.replace(**kw), 8, 8, backend="slab", device="cpu", differentiable=True)

@@ -9,10 +9,10 @@ default renderer is the CUDA march kernel (``--renderer slab_cuda`` on
 device.  ``--importance`` gates the march on importance look-ahead along
 the ray, ``--importance --cone`` along 8 cone directions (the CUDA gate
 kernels with ``slab_cuda``); ``--scene teapot`` is the segmented stand-in
-whose lobster is important.  Gaussian smoothing is not ported yet, and
-``--gaussian`` is on by default as in the reference: pass ``--no-gaussian``.
-``--first-hit``, ``--coloring``, ``--distributed`` and ``--profile`` are not
-ported yet either and raise ``NotImplementedError``.
+whose lobster is important.  ``--gaussian`` (Gaussian-smoothed density
+along the ray) is on by default as in the reference; ``--no-gaussian``
+turns it off.  ``--first-hit``, ``--coloring``, ``--distributed`` and
+``--profile`` are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -145,8 +145,7 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--step-size", type=float, default=0.01)
         p.add_argument(
             "--gaussian", action=argparse.BooleanOptionalAction, default=True,
-            help="Gaussian-smoothed sampling (reference default ON); not "
-            "ported yet, so pass --no-gaussian",
+            help="Gaussian-smoothed sampling (reference default ON)",
         )
         p.add_argument("--no-shading", action="store_true", help="disable Blinn-Phong shading")
         p.add_argument(

@@ -26,9 +26,10 @@ class RenderParams:
 
     The slab march reads ``density_threshold``, ``raymarching_step_size``
     (mapped to a plane count), ``interpolation``, ``early_termination_alpha``,
-    ``use_shading``, ``subtexel_bits`` and ``u8_volume``, and the look-ahead
-    reads ``use_importance_rendering`` and ``use_cone_importance_check``.
-    The other importance, smoothing and first-hit fields are carried so a
+    ``use_shading``, ``use_gaussian_smoothing``, ``subtexel_bits`` and
+    ``u8_volume``, and the look-ahead reads ``use_importance_rendering`` and
+    ``use_cone_importance_check``.  The other importance and first-hit
+    fields are carried so a
     parameter set converts field by field; the renderer refuses the modes
     that are not ported.  ``importance_check_ahead_steps`` has no effect on
     the slab march, as in the JAX package.

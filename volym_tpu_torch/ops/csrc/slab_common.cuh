@@ -1,10 +1,11 @@
 // Device helpers shared by the slab march (slab_march.cu), its replay
-// backward (slab_replay.cu) and the look-ahead gate (lookahead.cu): the
-// per-ray and cone tables' rows, the subtexel snap, the nearest tap, the
-// clamp-to-edge slice sample and the TF texel lookup.  The kernels must
-// evaluate these expressions identically, bit for bit (build with
-// --fmad=false), so that the replay reproduces the forward's masks and the
-// gate the march's samples.
+// backward (slab_replay.cu), the voxel-gradient scatters (voxel_grad.cu)
+// and the look-ahead gate (lookahead.cu): the per-ray and cone tables'
+// rows, the subtexel snap, the nearest tap, the clamp-to-edge slice sample
+// and its transpose, the TF texel lookup and the Gaussian smoothing
+// stencil.  The kernels must evaluate these expressions identically, bit
+// for bit (build with --fmad=false), so that the replay reproduces the
+// forward's masks and the gate the march's samples.
 
 #pragma once
 
@@ -75,6 +76,25 @@ __device__ __forceinline__ float sample(const T* __restrict__ sl, float rows, fl
     }
 }
 
+// transpose of sample<>: add v times the sample's bilinear (4 taps) or box
+// (1 tap) weights into the slice, with global atomics
+template <bool BILINEAR>
+__device__ __forceinline__ void scatter(float* __restrict__ sl, float rows, float cols, int nr, int nc, float v) {
+    if (BILINEAR) {
+        const float r0f = floorf(rows), c0f = floorf(cols);
+        const float tr = rows - r0f, tc = cols - c0f;
+        const int r0 = clampi((int)r0f, 0, nr - 1), r1 = clampi((int)r0f + 1, 0, nr - 1);
+        const int c0 = clampi((int)c0f, 0, nc - 1), c1 = clampi((int)c0f + 1, 0, nc - 1);
+        const float ur = 1.0f - tr, uc = 1.0f - tc;
+        atomicAdd(sl + r0 * nc + c0, v * ur * uc);
+        atomicAdd(sl + r0 * nc + c1, v * ur * tc);
+        atomicAdd(sl + r1 * nc + c0, v * tr * uc);
+        atomicAdd(sl + r1 * nc + c1, v * tr * tc);
+    } else {
+        atomicAdd(sl + nearest_index(rows, cols, nr, nc), v);
+    }
+}
+
 // the two LUT texels and weights of a linear TF lookup: texel centres at
 // (i + 0.5) / ln, clamp-to-edge
 struct TfTexels {
@@ -91,6 +111,109 @@ __device__ __forceinline__ TfTexels tf_texels(float density, float tf_scale, flo
     t.i0 = (int)i0f;
     t.i1 = min(t.i0 + 1, ln - 1);
     return t;
+}
+
+// ---------------------------------------------------------------------------
+// Gaussian smoothing (volym_tpu_torch/render/slab.py smooth_row; the TPU
+// kernel's _smooth_row, slab_kernel.py:879-934).  The reference smooths
+// along the ray with 5 taps at t-offsets i * 0.005, i in [-2, 2].  A tap
+// lies u = delta / ts march steps from step j, a per-ray constant, so it is
+// a hat (bilinear) or box (nearest) combination of the plain density rows
+// j-3 .. j+3: a 7-row stencil along the slab axis.
+
+// slab-axis half-width of the stencil (slab.py SMOOTH_HALO)
+constexpr int SMOOTH_HALO = 3;
+constexpr int SMOOTH_ROWS = 2 * SMOOTH_HALO + 1;
+constexpr int GAUSS_TAPS = 5;
+
+// the taps' t-offsets and weights as float32, the values of slab.py
+// GAUSS_TAPS (float32(i * 0.005), float32(exp(-d^2 / (2 * 1.5^2))))
+__device__ __forceinline__ float gauss_delta(int i) {
+    return i == 0 ? -0x1.47ae14p-7f : i == 1 ? -0x1.47ae14p-8f : i == 2 ? 0.0f : i == 3 ? 0x1.47ae14p-8f : 0x1.47ae14p-7f;
+}
+
+__device__ __forceinline__ float gauss_weight(int i) {
+    return (i == 0 || i == 4) ? 0x1.fffd16p-1f : (i == 1 || i == 3) ? 0x1.ffff46p-1f : 1.0f;
+}
+
+// the plain density row of march step j: the sample at the step's own
+// snapped coordinates, whatever the ray's t-window (the march's own
+// expressions for rows, cols and the physical plane k)
+template <bool BILINEAR, typename T>
+__device__ __forceinline__ float plain_row(const T* __restrict__ vol, int j, float rs, float rb, float cs, float cb,
+                                           int n, int nr, int nc, int sign, int subtexel) {
+    const float jf = (float)j;
+    const float rows = snap(clampf(rs * jf + rb, 0.0f, (float)(nr - 1)), subtexel);
+    const float cols = snap(clampf(cs * jf + cb, 0.0f, (float)(nc - 1)), subtexel);
+    const size_t k = (size_t)(sign > 0 ? j : n - 1 - j);
+    return sample<BILINEAR>(vol + k * ((size_t)nr * nc), rows, cols, nr, nc);
+}
+
+// The sliding window of plain rows d[o + 3] = row clamp(j + o) to [0, n-1],
+// o in [-3, 3], for march step j.  Call advance() at every step j from the
+// first one the ray reaches on, in order: the first call samples the 7
+// rows, every later one shifts and samples row j + 3 (beyond the sweep the
+// end row, already held).
+template <bool BILINEAR, typename T>
+struct SmoothWindow {
+    float d[SMOOTH_ROWS];
+    bool primed;
+
+    __device__ __forceinline__ SmoothWindow() : primed(false) {}
+
+    __device__ __forceinline__ void advance(const T* __restrict__ vol, int j, float rs, float rb, float cs, float cb,
+                                            int n, int nr, int nc, int sign, int subtexel) {
+        if (!primed) {
+#pragma unroll
+            for (int o = 0; o < SMOOTH_ROWS; ++o) {
+                d[o] = plain_row<BILINEAR>(vol, clampi(j + o - SMOOTH_HALO, 0, n - 1), rs, rb, cs, cb, n, nr, nc,
+                                           sign, subtexel);
+            }
+            primed = true;
+            return;
+        }
+#pragma unroll
+        for (int o = 0; o < SMOOTH_ROWS - 1; ++o) d[o] = d[o + 1];
+        if (j + SMOOTH_HALO <= n - 1) {
+            d[SMOOTH_ROWS - 1] =
+                plain_row<BILINEAR>(vol, j + SMOOTH_HALO, rs, rb, cs, cb, n, nr, nc, sign, subtexel);
+        }
+    }
+};
+
+// The smoothed density of march step j from the window's rows d: each tap
+// counts where it lies in the box (rows and columns bounded by the texel
+// counts nr/nc, the slab axis by the plane count n), and the sum is
+// normalised by the weights that count.  Operation order as in
+// slab.py::smooth_row; ts == 0 is guarded as in the TPU kernel.
+template <bool BILINEAR>
+__device__ __forceinline__ float smooth_density(const float (&d)[SMOOTH_ROWS], int j, float rs, float rb, float cs,
+                                                float cb, float ts_raw, int n, int nr, int nc) {
+    const float ts = ts_raw == 0.0f ? 1.0f : ts_raw;
+    const float jf = (float)j;
+    const float rows_raw = rs * jf + rb;
+    const float cols_raw = cs * jf + cb;
+    const float bnd_r = (float)nr - 0.5f, bnd_c = (float)nc - 0.5f, bnd_s = (float)n - 0.5f;
+    float total = 0.0f, wsum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < GAUSS_TAPS; ++i) {
+        const float u = gauss_delta(i) / ts;
+        const float rt = rows_raw + u * rs;
+        const float ct = cols_raw + u * cs;
+        const float st = jf + u;
+        const bool in_box = rt >= -0.5f && rt <= bnd_r && ct >= -0.5f && ct <= bnd_c && st >= -0.5f && st <= bnd_s;
+        float tap = 0.0f;
+#pragma unroll
+        for (int o = 0; o < SMOOTH_ROWS; ++o) {
+            const float dl = u - (float)(o - SMOOTH_HALO);
+            const float ker = BILINEAR ? fmaxf(0.0f, 1.0f - fabsf(dl)) : ((dl >= -0.5f && dl < 0.5f) ? 1.0f : 0.0f);
+            tap = tap + ker * d[o];
+        }
+        const float wb = in_box ? gauss_weight(i) : 0.0f;
+        total = total + wb * tap;
+        wsum = wsum + wb;
+    }
+    return total / (wsum > 0.0f ? wsum : 1.0f);
 }
 
 }  // namespace volym_slab

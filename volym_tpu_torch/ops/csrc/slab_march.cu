@@ -43,6 +43,21 @@
 // alpha >= early_alpha breaks are unchanged: a gated step adds no alpha.
 // The wrapper refuses a gate together with EMIT, whose residual belongs to
 // the look-ahead's backward.
+//
+// Gaussian smoothing (SMOOTH, the TPU kernel's smoothing block
+// slab_kernel.py:216-261): the step's density is the smoothed one, a
+// 7-row stencil along the slab axis over the plain density rows j-3..j+3
+// (smooth_density in slab_common.cuh).  The TPU kernel samples the rows of
+// a whole slab batch plus its halo from the previous and next slice
+// blocks; here each thread keeps a sliding window of 7 plain samples in
+// registers (SmoothWindow), primed at the first step the ray reaches and
+// then one new sample a step, three steps ahead of the composited one.
+// The rows are sampled at the steps' clipped coordinates whatever the
+// t-window, and rows beyond the sweep clamp to its end rows, as in the
+// plain version.  The smoothed density takes the place of the sample in
+// the threshold mask, the TF lookup and the residual's row 0; the gradient
+// field is still sampled at the step's own coordinates.  A gated step
+// still advances the window.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,7 +70,7 @@ namespace {
 
 using namespace volym_slab;
 
-template <bool BILINEAR, bool U8, bool SHADING, bool EMIT>
+template <bool BILINEAR, bool U8, bool SHADING, bool EMIT, bool SMOOTH>
 __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_march_kernel(
     const float* __restrict__ feats,  // (N_FEATURES, H, W)
     const void* __restrict__ vol_,    // (n, nr, nc) uint8 if U8 else float
@@ -102,16 +117,20 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_march_kernel(
         const size_t slice = (size_t)nr * nc;
         const float rmax = (float)(nr - 1), cmax = (float)(nc - 1), lmax = (float)(ln - 1);
         uint32_t word = 0u;
+        SmoothWindow<BILINEAR, T> win;
         for (int j = 0; j < n; ++j) {
             const float jf = (float)j;
             const float t = ts * jf + tb;
             if (t >= exit_ || acc_a >= early_alpha) break;
             if (gate != nullptr && (j & 31) == 0) word = __ldg(gate + (size_t)(j >> 5) * n_rays + r);
-            if (!(t >= entry) || ((word >> (j & 31)) & 1u)) continue;
+            if (!(t >= entry)) continue;
+            if (SMOOTH) win.advance(vol, j, rs, rb, cs, cb, n, nr, nc, sign, subtexel);
+            if ((word >> (j & 31)) & 1u) continue;
             const float rows = snap(clampf(rs * jf + rb, 0.0f, rmax), subtexel);
             const float cols = snap(clampf(cs * jf + cb, 0.0f, cmax), subtexel);
             const size_t k = (size_t)(sign > 0 ? j : n - 1 - j);
-            const float density = sample<BILINEAR>(vol + k * slice, rows, cols, nr, nc);
+            const float density = SMOOTH ? smooth_density<BILINEAR>(win.d, j, rs, rb, cs, cb, ts, n, nr, nc)
+                                         : sample<BILINEAR>(vol + k * slice, rows, cols, nr, nc);
             float* dj = EMIT ? dens + (size_t)j * (SHADING ? 4 : 1) * n_rays + r : nullptr;
             if (EMIT) dj[0] = density;
             if (!(density >= threshold)) continue;
@@ -161,14 +180,14 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_march_kernel(
     *o = make_float4(acc_r, acc_g, acc_b, acc_a);
 }
 
-template <bool BILINEAR, bool U8, bool SHADING, bool EMIT>
+template <bool BILINEAR, bool U8, bool SHADING, bool EMIT, bool SMOOTH>
 void launch(const float* feats, const void* vol, const float* grad, const float* lut, float* out,
             float* dens, const uint32_t* gate, int height, int width, int n, int nr, int nc, int ln, int sign,
             int subtexel, float threshold, float early_alpha, float tf_scale, cudaStream_t stream) {
     const dim3 block(TILE_X, TILE_Y);
     const dim3 grid((width + TILE_X - 1) / TILE_X, (height + TILE_Y - 1) / TILE_Y);
     const size_t smem = (size_t)ln * 4 * sizeof(float);
-    slab_march_kernel<BILINEAR, U8, SHADING, EMIT><<<grid, block, smem, stream>>>(
+    slab_march_kernel<BILINEAR, U8, SHADING, EMIT, SMOOTH><<<grid, block, smem, stream>>>(
         feats, vol, grad, lut, out, dens, gate, height, width, n, nr, nc, ln, sign, subtexel,
         threshold, early_alpha, tf_scale);
 }
@@ -181,17 +200,23 @@ extern "C" int slab_march_launch(const float* feats, const void* vol, const floa
                                  const float* lut, float* out, float* dens, const uint32_t* gate,
                                  int height, int width,
                                  int n, int nr, int nc, int ln, int sign, int subtexel,
-                                 int bilinear, int u8, int shading, int emit, float threshold,
+                                 int bilinear, int u8, int shading, int emit, int smooth, float threshold,
                                  float early_alpha, float tf_scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VOLYM_LAUNCH(B, U, S, E)                                                            \
-    launch<B, U, S, E>(feats, vol, grad, lut, out, dens, gate, height, width, n, nr, nc, ln, sign, \
-                       subtexel, threshold, early_alpha, tf_scale, s)
-#define VOLYM_LAUNCH_E(B, U, S)         \
-    if (emit) {                         \
-        VOLYM_LAUNCH(B, U, S, true);    \
-    } else {                            \
-        VOLYM_LAUNCH(B, U, S, false);   \
+#define VOLYM_LAUNCH(B, U, S, E, G)                                                            \
+    launch<B, U, S, E, G>(feats, vol, grad, lut, out, dens, gate, height, width, n, nr, nc, ln, sign, \
+                          subtexel, threshold, early_alpha, tf_scale, s)
+#define VOLYM_LAUNCH_G(B, U, S, E)         \
+    if (smooth) {                          \
+        VOLYM_LAUNCH(B, U, S, E, true);    \
+    } else {                               \
+        VOLYM_LAUNCH(B, U, S, E, false);   \
+    }
+#define VOLYM_LAUNCH_E(B, U, S)            \
+    if (emit) {                            \
+        VOLYM_LAUNCH_G(B, U, S, true);     \
+    } else {                               \
+        VOLYM_LAUNCH_G(B, U, S, false);    \
     }
     const int variant = (bilinear ? 4 : 0) | (u8 ? 2 : 0) | (shading ? 1 : 0);
     switch (variant) {
@@ -205,6 +230,7 @@ extern "C" int slab_march_launch(const float* feats, const void* vol, const floa
         default: VOLYM_LAUNCH_E(true, true, true); break;
     }
 #undef VOLYM_LAUNCH_E
+#undef VOLYM_LAUNCH_G
 #undef VOLYM_LAUNCH
     return (int)cudaGetLastError();
 }

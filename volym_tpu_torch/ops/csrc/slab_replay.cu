@@ -40,6 +40,19 @@
 // Numerics: built with --fmad=false like the forward.  The replayed
 // accumulator must equal the forward's bit for bit, or the early-alpha mask
 // of a later step flips.
+//
+// Gaussian smoothing (SMOOTH; the TPU replay with fuse_scatter=False,
+// slab_bwd_kernel.py:329-400, 1590-1600): the step's density is the
+// smoothed one, read from the residual or re-sampled through the forward's
+// own SmoothWindow and smooth_density (slab_common.cuh), so the replay
+// retraces the forward bit for bit.  A step's density cotangent then
+// belongs to the smoothed density, a stencil over plain rows, and cannot be
+// scattered at the step's own coordinates: the kernel writes it, and the
+// gradient-field cotangents when shaded, into dd (n, 1 or 4, H, W) at
+// (j, ray), rays fastest, and scatters nothing into d_vol or d_grad.  The
+// stencil's transpose and the scatters of voxel_grad.cu (B3, B4) take dd
+// from there.  d_lut stays here.  Steps that composite nothing keep the
+// wrapper's zero-fill.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,31 +69,11 @@ using namespace volym_slab;
 constexpr float AMBIENT = 0.2f, DIFFUSE = 0.7f, SPECULAR = 0.4f, SHININESS = 24.0f;
 constexpr float INV_SQRT3 = 0.57735026f;
 
-// transpose of sample<>: add v times the sample's weights into the slice
-template <bool BILINEAR>
-__device__ __forceinline__ void scatter(float* __restrict__ sl, float rows, float cols, int nr, int nc, float v) {
-    if (BILINEAR) {
-        const float r0f = floorf(rows), c0f = floorf(cols);
-        const float tr = rows - r0f, tc = cols - c0f;
-        const int r0 = clampi((int)r0f, 0, nr - 1), r1 = clampi((int)r0f + 1, 0, nr - 1);
-        const int c0 = clampi((int)c0f, 0, nc - 1), c1 = clampi((int)c0f + 1, 0, nc - 1);
-        const float ur = 1.0f - tr, uc = 1.0f - tc;
-        atomicAdd(sl + r0 * nc + c0, v * ur * uc);
-        atomicAdd(sl + r0 * nc + c1, v * ur * tc);
-        atomicAdd(sl + r1 * nc + c0, v * tr * uc);
-        atomicAdd(sl + r1 * nc + c1, v * tr * tc);
-    } else {
-        const int r = clampi((int)floorf(rows + 0.5f), 0, nr - 1);
-        const int c = clampi((int)floorf(cols + 0.5f), 0, nc - 1);
-        atomicAdd(sl + r * nc + c, v);
-    }
-}
-
-template <bool BILINEAR, bool U8, bool SHADING, bool STORED>
+template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH>
 __device__ __forceinline__ void replay_ray(
     const float* __restrict__ f, const void* __restrict__ vol_, const float* __restrict__ grad,
     const float* __restrict__ s_lut, const float* __restrict__ dens, float4 fin, float4 g,
-    float* __restrict__ d_vol, float* __restrict__ d_grad, float* __restrict__ s_dlut,
+    float* __restrict__ d_vol, float* __restrict__ d_grad, float* __restrict__ s_dlut, float* __restrict__ dd,
     size_t n_rays, size_t r, int n, int nr, int nc, int ln, int sign, int subtexel,
     float threshold, float early_alpha, float tf_scale) {
     using T = typename std::conditional<U8, uint8_t, float>::type;
@@ -105,17 +98,27 @@ __device__ __forceinline__ void replay_ray(
     const float rmax = (float)(nr - 1), cmax = (float)(nc - 1), lmax = (float)(ln - 1);
 
     float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_a = 0.0f;
+    SmoothWindow<BILINEAR, T> win;
     for (int j = 0; j < n; ++j) {
         const float jf = (float)j;
         const float t = ts * jf + tb;
         if (t >= exit_ || acc_a >= early_alpha) break;
         if (!(t >= entry)) continue;
+        if (SMOOTH && !STORED) win.advance(vol, j, rs, rb, cs, cb, n, nr, nc, sign, subtexel);
         const float rows = snap(clampf(rs * jf + rb, 0.0f, rmax), subtexel);
         const float cols = snap(clampf(cs * jf + cb, 0.0f, cmax), subtexel);
         const size_t k = (size_t)(sign > 0 ? j : n - 1 - j);
         const float* dj = STORED ? dens + (size_t)j * DW * n_rays + r : nullptr;
-        const float density = STORED ? dj[0] : sample<BILINEAR>(vol + k * slice, rows, cols, nr, nc);
+        float density;
+        if (STORED) {
+            density = dj[0];
+        } else if (SMOOTH) {
+            density = smooth_density<BILINEAR>(win.d, j, rs, rb, cs, cb, ts, n, nr, nc);
+        } else {
+            density = sample<BILINEAR>(vol + k * slice, rows, cols, nr, nc);
+        }
         if (!(density >= threshold)) continue;
+        float* ddj = SMOOTH ? dd + (size_t)j * DW * n_rays + r : nullptr;
 
         const float c_raw = density * tf_scale - 0.5f;
         const TfTexels tx = tf_texels(density, tf_scale, lmax, ln);
@@ -194,9 +197,15 @@ __device__ __forceinline__ void replay_ray(
             const float d_gx = inv_norm * (d_nx - nx * n_dot_dn);
             const float d_gy = inv_norm * (d_ny - ny * n_dot_dn);
             const float d_gz = inv_norm * (d_nz - nz * n_dot_dn);
-            scatter<BILINEAR>(d_grad + k * slice, rows, cols, nr, nc, d_gx);
-            scatter<BILINEAR>(d_grad + ((size_t)n + k) * slice, rows, cols, nr, nc, d_gy);
-            scatter<BILINEAR>(d_grad + ((size_t)2 * n + k) * slice, rows, cols, nr, nc, d_gz);
+            if (SMOOTH) {
+                ddj[n_rays] = d_gx;
+                ddj[2 * n_rays] = d_gy;
+                ddj[3 * n_rays] = d_gz;
+            } else {
+                scatter<BILINEAR>(d_grad + k * slice, rows, cols, nr, nc, d_gx);
+                scatter<BILINEAR>(d_grad + ((size_t)n + k) * slice, rows, cols, nr, nc, d_gy);
+                scatter<BILINEAR>(d_grad + ((size_t)2 * n + k) * slice, rows, cols, nr, nc, d_gz);
+            }
             d_r = d_r * lit;
             d_g = d_g * lit;
             d_b = d_b * lit;
@@ -212,12 +221,16 @@ __device__ __forceinline__ void replay_ray(
             d_c = d_c + d_rgba[ch] * (s_lut[i1 * 4 + ch] - s_lut[i0 * 4 + ch]);
         }
         if (fr > 0.0f && c_raw > 0.0f && c_raw < lmax) {
-            scatter<BILINEAR>(d_vol + k * slice, rows, cols, nr, nc, d_c * tf_scale);
+            if (SMOOTH) {
+                ddj[0] = d_c * tf_scale;
+            } else {
+                scatter<BILINEAR>(d_vol + k * slice, rows, cols, nr, nc, d_c * tf_scale);
+            }
         }
     }
 }
 
-template <bool BILINEAR, bool U8, bool SHADING, bool STORED>
+template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH>
 __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
     const float* __restrict__ feats,  // (N_FEATURES, H, W)
     const void* __restrict__ vol,     // (n, nr, nc) uint8 if U8 else float; unread when STORED
@@ -229,6 +242,7 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
     float* __restrict__ d_vol,        // (n, nr, nc), zero-filled
     float* __restrict__ d_grad,       // (3, n, nr, nc) when SHADING, zero-filled
     float* __restrict__ d_lut,        // (ln, 4), zero-filled
+    float* __restrict__ dd,           // (n, SHADING ? 4 : 1, H, W) when SMOOTH, zero-filled
     int height, int width, int n, int nr, int nc, int ln, int sign, int subtexel,
     float threshold, float early_alpha, float tf_scale) {
     extern __shared__ float smem[];
@@ -249,8 +263,8 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
         const size_t r = (size_t)y * width + x;
         const float4 fo = reinterpret_cast<const float4*>(fin)[r];
         const float4 go = reinterpret_cast<const float4*>(gimg)[r];
-        replay_ray<BILINEAR, U8, SHADING, STORED>(
-            feats + r, vol, grad, s_lut, dens, fo, go, d_vol, d_grad, s_dlut, n_rays, r, n, nr, nc,
+        replay_ray<BILINEAR, U8, SHADING, STORED, SMOOTH>(
+            feats + r, vol, grad, s_lut, dens, fo, go, d_vol, d_grad, s_dlut, dd, n_rays, r, n, nr, nc,
             ln, sign, subtexel, threshold, early_alpha, tf_scale);
     }
     __syncthreads();
@@ -260,40 +274,47 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
     }
 }
 
-template <bool BILINEAR, bool U8, bool SHADING, bool STORED>
+template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH>
 void launch(const float* feats, const void* vol, const float* grad, const float* lut,
             const float* dens, const float* fin, const float* gimg, float* d_vol, float* d_grad,
-            float* d_lut, int height, int width, int n, int nr, int nc, int ln, int sign,
+            float* d_lut, float* dd, int height, int width, int n, int nr, int nc, int ln, int sign,
             int subtexel, float threshold, float early_alpha, float tf_scale, cudaStream_t stream) {
     const dim3 block(TILE_X, TILE_Y);
     const dim3 grid((width + TILE_X - 1) / TILE_X, (height + TILE_Y - 1) / TILE_Y);
     const size_t smem = (size_t)ln * 8 * sizeof(float);
-    slab_replay_kernel<BILINEAR, U8, SHADING, STORED><<<grid, block, smem, stream>>>(
-        feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, height, width, n, nr, nc, ln,
+    slab_replay_kernel<BILINEAR, U8, SHADING, STORED, SMOOTH><<<grid, block, smem, stream>>>(
+        feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, dd, height, width, n, nr, nc, ln,
         sign, subtexel, threshold, early_alpha, tf_scale);
 }
 
 }  // namespace
 
 // C entry for ctypes: launches on `stream` and returns cudaGetLastError().
-// `grad` may be NULL when stored or unshaded, `dens` unless stored, and
-// `d_grad` unless shaded.
+// `grad` may be NULL when stored or unshaded, `dens` unless stored,
+// `d_vol` and `d_grad` when smoothing (and `d_grad` unless shaded), and
+// `dd` unless smoothing.
 extern "C" int slab_replay_launch(const float* feats, const void* vol, const float* grad,
                                   const float* lut, const float* dens, const float* fin,
                                   const float* gimg, float* d_vol, float* d_grad, float* d_lut,
-                                  int height, int width, int n, int nr, int nc, int ln, int sign,
-                                  int subtexel, int bilinear, int u8, int shading, int stored,
-                                  float threshold, float early_alpha, float tf_scale,
-                                  void* stream) {
+                                  float* dd, int height, int width, int n, int nr, int nc, int ln,
+                                  int sign, int subtexel, int bilinear, int u8, int shading,
+                                  int stored, int smooth, float threshold, float early_alpha,
+                                  float tf_scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VOLYM_LAUNCH(B, U, S, D)                                                              \
-    launch<B, U, S, D>(feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, height, \
-                       width, n, nr, nc, ln, sign, subtexel, threshold, early_alpha, tf_scale, s)
-#define VOLYM_LAUNCH_D(B, U, S)        \
-    if (stored) {                      \
-        VOLYM_LAUNCH(B, U, S, true);   \
-    } else {                           \
-        VOLYM_LAUNCH(B, U, S, false);  \
+#define VOLYM_LAUNCH(B, U, S, D, G)                                                               \
+    launch<B, U, S, D, G>(feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, dd, height, \
+                          width, n, nr, nc, ln, sign, subtexel, threshold, early_alpha, tf_scale, s)
+#define VOLYM_LAUNCH_G(B, U, S, D)        \
+    if (smooth) {                         \
+        VOLYM_LAUNCH(B, U, S, D, true);   \
+    } else {                              \
+        VOLYM_LAUNCH(B, U, S, D, false);  \
+    }
+#define VOLYM_LAUNCH_D(B, U, S)           \
+    if (stored) {                         \
+        VOLYM_LAUNCH_G(B, U, S, true);    \
+    } else {                              \
+        VOLYM_LAUNCH_G(B, U, S, false);   \
     }
     const int variant = (bilinear ? 4 : 0) | (u8 ? 2 : 0) | (shading ? 1 : 0);
     switch (variant) {
@@ -307,6 +328,7 @@ extern "C" int slab_replay_launch(const float* feats, const void* vol, const flo
         default: VOLYM_LAUNCH_D(true, true, true); break;
     }
 #undef VOLYM_LAUNCH_D
+#undef VOLYM_LAUNCH_G
 #undef VOLYM_LAUNCH
     return (int)cudaGetLastError();
 }

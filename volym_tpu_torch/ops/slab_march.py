@@ -1,17 +1,18 @@
 """The slab march on the GPU: the per-ray table, the CUDA kernel's wrapper,
 the production render and the differentiable render.
 
-Counterpart of :mod:`volym_tpu.ops.slab_kernel` (base and shading modes,
-forward with or without the importance look-ahead gate of
-:mod:`volym_tpu_torch.ops.lookahead`, and, through :class:`DiffMarch`, the
-backward without camera gradients or look-ahead).  The TPU kernel
-``_march_kernel`` samples with hat-matrix products
+Counterpart of :mod:`volym_tpu.ops.slab_kernel` (base, shading and
+Gaussian smoothing modes, forward with or without the importance
+look-ahead gate of :mod:`volym_tpu_torch.ops.lookahead`, and, through
+:class:`DiffMarch`, the backward without camera gradients or look-ahead).
+The TPU kernel ``_march_kernel`` samples with hat-matrix products
 on the MXU over a grid of (ray chunk, slab block) pairs; the CUDA kernel
 (``csrc/slab_march.cu``) marches one ray per thread with direct texel
 loads and needs none of that machinery: no pair grid, tile order, window
 ladders, grouped LUT or VMEM sizing.  What it keeps is the semantics: the
 per-ray affine table computed once in torch (:func:`features_from_rays`),
-the subtexel snap, the masks and the u8 scaled density domain.
+the subtexel snap, the masks, the smoothing stencil and the u8 scaled
+density domain.
 
 :func:`march` dispatches on the device of its tensors: CPU tensors go to
 the plain version :func:`volym_tpu_torch.render.slab.march_slabs`; CUDA
@@ -25,7 +26,7 @@ import ctypes
 import torch
 
 from volym_tpu_torch.config import Interpolation, RenderParams
-from volym_tpu_torch.ops import lookahead, slab_replay
+from volym_tpu_torch.ops import lookahead, slab_replay, voxel_grad
 from volym_tpu_torch.render import rays as rays_mod
 from volym_tpu_torch.render import slab as slab_mod
 from volym_tpu_torch.render.golden import CONE_SAMPLES, cone_directions
@@ -99,7 +100,6 @@ def check_supported(params: RenderParams) -> None:
     missing = [
         name
         for name, on in (
-            ("Gaussian smoothing (use_gaussian_smoothing; CLI --no-gaussian)", params.use_gaussian_smoothing),
             ("importance coloring (use_importance_coloring)", params.use_importance_coloring),
             ("first-hit (use_opacity=False)", not params.use_opacity),
         )
@@ -120,7 +120,7 @@ def _library():
         p = ctypes.c_void_p
         i = ctypes.c_int
         f = ctypes.c_float
-        fn.argtypes = [p] * 7 + [i] * 12 + [f, f, f, p]
+        fn.argtypes = [p] * 7 + [i] * 13 + [f, f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -175,6 +175,9 @@ def march_cuda(
     if gate is not None and (gate.dtype != torch.int32 or gate.shape != (lookahead.gate_words(n), height, width)):
         raise ValueError(f"gate must be int32 ({lookahead.gate_words(n)}, {height}, {width}), got {gate.dtype} "
                          f"{tuple(gate.shape)}")
+    smooth = params.use_gaussian_smoothing
+    if smooth:
+        slab_mod.check_smooth_planes(n)
     threshold, early_alpha, dscale = slab_mod.march_knobs(params, u8)
     tf_scale = float(ln) * (dscale if dscale else 1.0)
     out = torch.empty((height, width, 4), dtype=torch.float32, device=dev)
@@ -191,7 +194,7 @@ def march_cuda(
             gate.data_ptr() if gate is not None else None,
             height, width, n, nr, nc, ln, int(sign), int(params.subtexel_bits),
             int(params.interpolation == Interpolation.TRILINEAR), int(u8), int(shading), int(emit_density),
-            threshold, early_alpha, tf_scale,
+            int(smooth), threshold, early_alpha, tf_scale,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -291,15 +294,39 @@ def check_differentiable(params: RenderParams) -> None:
     importance look-ahead."""
     if params.camera_grads:
         raise NotImplementedError(
-            "not ported to volym_tpu_torch yet: camera gradients (camera_grads=True; "
-            "pass camera_grads=False for scene-only gradients)"
+            "not ported to volym_tpu_torch yet: camera gradients (camera_grads=True; the next slice of the "
+            "port, with the smoothing camera chain B5; pass camera_grads=False for scene-only gradients)"
         )
     check_supported(params)
     if lookahead_active(params):
         raise NotImplementedError(
             "not ported to volym_tpu_torch yet: importance look-ahead in the differentiable render "
-            "(its backward, the replay gated by the same look-ahead gate, is the next slice of the port)"
+            "(its backward, the replay gated by the same look-ahead gate, comes after the next slice of the "
+            "port, camera gradients)"
         )
+
+
+def fold_smoothed(feats, dd, vol_shape, params: RenderParams):
+    """The replay's per-step cotangents under Gaussian smoothing
+    (:func:`slab.replay_slabs`) -> the cotangents of the plain samples: the
+    density channel goes through the stencil's transpose
+    (:func:`slab.smooth_dd_transpose`) onto the plain rows; the
+    gradient-field channels pass as they are (the field is sampled at each
+    step's own coordinates; ``slab_bwd_kernel.py:1684-1691``).  A
+    4-channel ``dd`` is updated in place."""
+    _, nr, nc = vol_shape
+    bilinear = params.interpolation == Interpolation.TRILINEAR
+    if dd.dim() == 4:
+        dd[:, 0] = slab_mod.smooth_dd_transpose(feats, dd[:, 0], nr, nc, bilinear)
+        return dd
+    return slab_mod.smooth_dd_transpose(feats, dd, nr, nc, bilinear)
+
+
+def smooth_backward(feats, dd, vol_shape, sign, params: RenderParams, scatter_fn=voxel_grad.scatter):
+    """The backward after the replay under Gaussian smoothing: ``dd`` ->
+    ``(d_vol, d_grad)``, :func:`fold_smoothed` and then ``scatter_fn``
+    (default :func:`voxel_grad.scatter`: B3, or B4 when shaded, on a GPU)."""
+    return scatter_fn(feats, fold_smoothed(feats, dd, vol_shape, params), vol_shape, sign, params)
 
 
 class DiffMarch(torch.autograd.Function):
@@ -310,14 +337,18 @@ class DiffMarch(torch.autograd.Function):
     :func:`slab_replay.use_stored_density` holds.  Backward: the replay
     with its fused voxel scatter (B2), into d ``vol_perm``, d ``lut`` and,
     shaded, d ``grad_perm``; ``feats`` gets none (no camera gradients).
-    In the u8 domain the march reads ``round(vol_perm * 255)`` as uint8
-    and the replay's d/d(scaled density) is multiplied by 255.  The march
-    and the replay are ``march_fn`` and ``replay_fn`` (:func:`march` and
-    :func:`slab_replay.replay` dispatch on the tensors' device).
+    Under Gaussian smoothing the replay writes its per-step cotangents
+    instead, and :func:`smooth_backward` folds and scatters them (the
+    stencil's transpose, then B3 or B4).  In the u8 domain the march reads
+    ``round(vol_perm * 255)`` as uint8 and the d/d(scaled density) is
+    multiplied by 255.  The march, the replay and the scatter are
+    ``march_fn``, ``replay_fn`` and ``scatter_fn`` (:func:`march`,
+    :func:`slab_replay.replay` and :func:`voxel_grad.scatter` dispatch on
+    the tensors' device).
     """
 
     @staticmethod
-    def forward(ctx, vol_perm, lut, grad_perm, feats, sign, params, u8, march_fn, replay_fn):
+    def forward(ctx, vol_perm, lut, grad_perm, feats, sign, params, u8, march_fn, replay_fn, scatter_fn):
         if u8:
             vol = torch.round(vol_perm * 255.0).clamp_(0.0, 255.0).to(torch.uint8).contiguous()
         else:
@@ -327,37 +358,42 @@ class DiffMarch(torch.autograd.Function):
         res = march_fn(feats, vol, lut, sign, params, grad_perm, u8, emit_density=stored)
         out, dens = res if stored else (res, None)
         ctx.save_for_backward(feats, vol, lut, grad_perm, out, dens)
-        ctx.sign, ctx.params, ctx.u8, ctx.replay_fn = sign, params, u8, replay_fn
+        ctx.sign, ctx.params, ctx.u8, ctx.replay_fn, ctx.scatter_fn = sign, params, u8, replay_fn, scatter_fn
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_img):
         feats, vol, lut, grad_perm, out, dens = ctx.saved_tensors
-        d_vol, d_grad, d_lut = ctx.replay_fn(
-            feats, vol, lut, ctx.sign, ctx.params, out, g_img.contiguous(), grad_perm, ctx.u8, dens
-        )
+        res = ctx.replay_fn(feats, vol, lut, ctx.sign, ctx.params, out, g_img.contiguous(), grad_perm, ctx.u8, dens)
+        if ctx.params.use_gaussian_smoothing:
+            dd, d_lut = res
+            d_vol, d_grad = smooth_backward(feats, dd, vol.shape, ctx.sign, ctx.params, ctx.scatter_fn)
+        else:
+            d_vol, d_grad, d_lut = res
         if ctx.u8:
             d_vol = d_vol * 255.0  # d/d(scaled density) -> d/d(v/255 volume)
-        return d_vol, d_lut, d_grad, None, None, None, None, None, None
+        return d_vol, d_lut, d_grad, None, None, None, None, None, None, None
 
 
 def render_diff(
-    scene, camera_matrices, params: RenderParams, height: int, width: int, march_fn=march, replay_fn=slab_replay.replay
+    scene, camera_matrices, params: RenderParams, height: int, width: int, march_fn=march,
+    replay_fn=slab_replay.replay, scatter_fn=voxel_grad.scatter,
 ):
     """Differentiable slab render -> (H, W, 4) on the scene's device, the
     counterpart of ``slab_kernel.render_diff``.  Gradients reach
     ``scene.volume`` and ``scene.tf_lut`` through ``torch.autograd``: the
     permute, the plane resample and the gradient field stay in the graph,
     and :class:`DiffMarch` is the march and its replay, through
-    ``march_fn`` and ``replay_fn`` (default: the CUDA kernels on a GPU).
+    ``march_fn``, ``replay_fn`` and, under Gaussian smoothing,
+    ``scatter_fn`` (default: the CUDA kernels on a GPU).
 
     In the u8 domain (:func:`u8_active`) the uint8 grid is derived from the
     differentiable volume on every call, ``round(volume * 255)``, so a
     volume that is not u8-representable is quantised silently, as in the
     TPU package (and values outside [0, 1] are clamped to it);
-    ``scene.volume_u8`` is not read.  Camera gradients, smoothing,
-    coloring, look-ahead and first-hit raise ``NotImplementedError``.
+    ``scene.volume_u8`` is not read.  Camera gradients, coloring,
+    look-ahead and first-hit raise ``NotImplementedError``.
     """
     check_differentiable(params)
     major, sign, planes, u8 = _layout(scene, camera_matrices, params)
@@ -365,4 +401,6 @@ def render_diff(
     grad_perm = _gradient_perm(scene.volume, major, planes) if params.use_shading else None
     with torch.no_grad():
         feats = _features(camera_matrices, scene.device, height, width, planes, major, sign, vol_perm.shape[1])
-    return DiffMarch.apply(vol_perm, scene.tf_lut, grad_perm, feats, sign, params, u8, march_fn, replay_fn)
+    return DiffMarch.apply(
+        vol_perm, scene.tf_lut, grad_perm, feats, sign, params, u8, march_fn, replay_fn, scatter_fn
+    )

@@ -5,8 +5,12 @@ Counterpart of :mod:`volym_tpu.ops.slab_bwd_kernel` on the path the
 training step runs: the replay ``_replay_kernel`` with its fused voxel
 scatter, from the stored density or re-sampled, base and shading modes,
 without camera cotangents.  The TPU backward splits the replay from the
-scatter (passes 1 and 2) only when its VMEM cannot hold the fused layout;
-one thread per ray scatters with atomics and needs no second pass.
+scatter (passes 1 and 2) when its VMEM cannot hold the fused layout and
+under Gaussian smoothing; one thread per ray scatters with atomics and
+needs no second pass for VMEM's sake, but under smoothing a step's
+cotangent belongs to the smoothed density, so the kernel writes the
+per-step cotangents (the TPU's unfused ``dd`` output) for the stencil's
+transpose and the scatters of :mod:`volym_tpu_torch.ops.voxel_grad`.
 
 :func:`replay` dispatches on the device of its tensors: CPU tensors go to
 the plain version :func:`volym_tpu_torch.render.slab.replay_slabs`; CUDA
@@ -57,7 +61,7 @@ def _library():
         p = ctypes.c_void_p
         i = ctypes.c_int
         f = ctypes.c_float
-        fn.argtypes = [p] * 10 + [i] * 12 + [f, f, f, p]
+        fn.argtypes = [p] * 11 + [i] * 13 + [f, f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -75,7 +79,8 @@ def replay_cuda(
     dens: torch.Tensor | None = None,
 ):
     """Launch the CUDA replay kernel; same arguments and result as
-    :func:`slab.replay_slabs`.  The summation order of its atomics, and so
+    :func:`slab.replay_slabs` (``(dd, d_lut)`` under Gaussian smoothing,
+    ``dd`` zero-filled here).  The summation order of its atomics, and so
     the last bits of ``d_vol``, ``d_grad`` and ``d_lut``, change from run
     to run."""
     global LAUNCHES
@@ -114,27 +119,37 @@ def replay_cuda(
             raise ValueError(f"dens must be float32 {want}, got {dens.dtype} {tuple(dens.shape)}")
     elif shading and (grad_perm.dtype != torch.float32 or grad_perm.shape != (3, n, nr, nc)):
         raise ValueError(f"grad_perm must be float32 (3, {n}, {nr}, {nc})")
+    smooth = params.use_gaussian_smoothing
+    if smooth:
+        slab_mod.check_smooth_planes(n)
     threshold, early_alpha, dscale = slab_mod.march_knobs(params, u8)
     tf_scale = float(ln) * (dscale if dscale else 1.0)
-    d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dev)
-    d_grad = torch.zeros((3, n, nr, nc), dtype=torch.float32, device=dev) if shading else None
+    d_vol = d_grad = dd = None
+    if smooth:
+        dd = torch.zeros((n, 4, height, width) if shading else (n, height, width), dtype=torch.float32, device=dev)
+    else:
+        d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dev)
+        d_grad = torch.zeros((3, n, nr, nc), dtype=torch.float32, device=dev) if shading else None
     d_lut = torch.zeros((ln, 4), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     fn = _library()
     with torch.cuda.device(dev):
         rc = fn(
-            feats.data_ptr(), vol_perm.data_ptr(),
-            grad_perm.data_ptr() if (shading and not stored) else None,
-            lut.data_ptr(), dens.data_ptr() if stored else None, out.data_ptr(), g_img.data_ptr(),
-            d_vol.data_ptr(), d_grad.data_ptr() if shading else None, d_lut.data_ptr(),
+            feats.data_ptr(), vol_perm.data_ptr(), ptr(grad_perm) if (shading and not stored) else None,
+            lut.data_ptr(), ptr(dens), out.data_ptr(), g_img.data_ptr(),
+            ptr(d_vol), ptr(d_grad), d_lut.data_ptr(), ptr(dd),
             height, width, n, nr, nc, ln, int(sign), int(params.subtexel_bits),
-            int(params.interpolation == Interpolation.TRILINEAR), int(u8), int(shading), int(stored),
+            int(params.interpolation == Interpolation.TRILINEAR), int(u8), int(shading), int(stored), int(smooth),
             threshold, early_alpha, tf_scale,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"slab_replay kernel launch failed with CUDA error {rc}")
     LAUNCHES += 1
-    return d_vol, d_grad, d_lut
+    return (dd, d_lut) if smooth else (d_vol, d_grad, d_lut)
 
 
 def replay(feats, vol_perm, lut, sign, params, out, g_img, grad_perm=None, u8=False, dens=None):

@@ -1,4 +1,5 @@
-"""The cone look-ahead's sample directions (``wgsl:94-106``).
+"""The cone look-ahead's sample directions (``wgsl:94-106``) and the
+Gaussian smoothing constants (``wgsl:52-56, 255``).
 
 Counterpart of ``cone_directions`` and its constants in
 :mod:`volym_tpu.render.golden`; the rest of that module, the t-step golden
@@ -16,6 +17,11 @@ import torch
 
 from volym_tpu_torch.render.rays import norm3
 
+#: Gaussian smoothing: 5 taps at t-offsets i * GAUSSIAN_STEP, i in
+#: [-GAUSSIAN_KERNEL_SIZE, GAUSSIAN_KERNEL_SIZE] (``wgsl:52-56, 255``)
+GAUSSIAN_KERNEL_SIZE = 2
+GAUSSIAN_STEP = 0.005
+GAUSSIAN_SIGMA = 1.5
 #: cone look-ahead constants (``wgsl:112-113``)
 CONE_SAMPLES = 8
 CONE_ANGLE = 0.2

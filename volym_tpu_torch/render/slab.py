@@ -1,8 +1,8 @@
 """Slab-marching renderer: plain PyTorch version.
 
-Counterpart of :mod:`volym_tpu.render.slab` for the base and shading
-modes, forward (with importance look-ahead) and backward (without camera
-gradients or look-ahead).  The march steps
+Counterpart of :mod:`volym_tpu.render.slab` for the base, shading and
+Gaussian smoothing modes, forward (with importance look-ahead) and backward
+(without camera gradients or look-ahead).  The march steps
 along the camera's dominant axis one voxel plane at a time, so every
 sample lies on a plane and trilinear filtering is bilinear inside one
 slice (see the JAX module for the derivation).
@@ -11,11 +11,15 @@ slice (see the JAX module for the derivation).
 (:mod:`volym_tpu_torch.ops.slab_march`): it reads the same per-ray table and
 evaluates every per-sample expression in the order the kernel does, so on
 one device the two agree to the rounding of ``exp``/``log``/``pow``.  It
-also runs the u8 scaled density domain of the TPU kernel, and emits the
+also runs the u8 scaled density domain of the TPU kernel, the slab-axis
+smoothing stencil (:func:`smoothed_densities`), and emits the
 stored-density residual.  :func:`replay_slabs` is the plain version of the
-CUDA replay backward (:mod:`volym_tpu_torch.ops.slab_replay`), and
-:func:`lookahead_gate` that of the CUDA look-ahead gate
-(:mod:`volym_tpu_torch.ops.lookahead`).
+CUDA replay backward (:mod:`volym_tpu_torch.ops.slab_replay`),
+:func:`voxel_grad` that of the CUDA voxel-gradient scatters
+(:mod:`volym_tpu_torch.ops.voxel_grad`), and :func:`lookahead_gate` that
+of the CUDA look-ahead gate (:mod:`volym_tpu_torch.ops.lookahead`).
+:func:`smooth_dd_transpose`, the smoothing stencil's transpose, has no
+kernel: it runs as written on every device.
 
 Rays whose dominant-axis direction component opposes the camera forward
 axis (possible at extreme fov) render as (0, 0, 0, 0), as in the JAX package.
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 
 from volym_tpu_torch.config import Interpolation, RenderParams
-from volym_tpu_torch.render.golden import CONE_SAMPLES
+from volym_tpu_torch.render.golden import CONE_SAMPLES, GAUSSIAN_KERNEL_SIZE, GAUSSIAN_SIGMA, GAUSSIAN_STEP
 from volym_tpu_torch.render.rays import sqrt_rn
 from volym_tpu_torch.render.shading import AMBIENT, DIFFUSE, GRADIENT_OFFSET, SHININESS, SPECULAR, safe_normalize
 from volym_tpu_torch.transfer_function import lut_sample
@@ -76,6 +80,22 @@ MISS_COLOR = (0.0, 0.0, 0.0, 1.0)
 
 #: step-size factor ladder (see :func:`step_planes`)
 STEP_LADDER = (4.0, 2.0, 1.0, 0.5, 0.25)
+
+#: slab-axis half-width of the smoothing stencil: a Gaussian tap lies
+#: u = delta / ts march steps from its step, |u| <= 0.01 * N (2.56 at 256
+#: planes), and its hat reaches one step further
+SMOOTH_HALO = 3
+#: the most planes the stencil covers, int(SMOOTH_HALO / (K * STEP)) = 300
+SMOOTH_MAX_PLANES = int(SMOOTH_HALO / (GAUSSIAN_KERNEL_SIZE * GAUSSIAN_STEP))
+#: the Gaussian taps as float32 values: (t-offset i * STEP, weight
+#: exp(-offset^2 / (2 sigma^2))) for i in [-K, K], the values JAX's weak
+#: Python floats take against float32 arrays (csrc/slab_common.cuh holds
+#: the same constants)
+GAUSS_TAPS = tuple(
+    (float(np.float32(i * GAUSSIAN_STEP)),
+     float(np.float32(math.exp(-((i * GAUSSIAN_STEP) * (i * GAUSSIAN_STEP)) / (2.0 * GAUSSIAN_SIGMA * GAUSSIAN_SIGMA)))))
+    for i in range(-GAUSSIAN_KERNEL_SIZE, GAUSSIAN_KERNEL_SIZE + 1)
+)
 
 
 def dominant_axis(camera_matrices) -> tuple[int, int]:
@@ -175,13 +195,17 @@ def step_planes(step_size: float, n_slabs: int) -> int:
 
 
 def resolve_planes(params: RenderParams, n_slabs: int) -> int:
-    """Effective sample-plane count of a render (:func:`step_planes`)."""
+    """Effective sample-plane count of a render (:func:`step_planes`).
+    Under Gaussian smoothing, as in the JAX package, supersampling is
+    clamped off, the count is capped at :data:`SMOOTH_MAX_PLANES` and
+    rounded down to a multiple of 8, but not below 8 (the TPU stencil's
+    slab batch; kept so both packages march the same planes)."""
+    planes = step_planes(params.raymarching_step_size, n_slabs)
     if params.use_gaussian_smoothing:
-        raise NotImplementedError(
-            "Gaussian smoothing is not ported to volym_tpu_torch yet "
-            "(pass --no-gaussian / use_gaussian_smoothing=False)"
-        )
-    return step_planes(params.raymarching_step_size, n_slabs)
+        planes = min(planes, n_slabs, SMOOTH_MAX_PLANES)
+        if planes % 8:
+            planes = max(8, planes // 8 * 8)
+    return planes
 
 
 def permute_volume(volume: torch.Tensor, major: int) -> torch.Tensor:
@@ -297,6 +321,158 @@ def _step_coords(f: torch.Tensor, j: int, n: int, nr: int, nc: int, sign: int, b
     return k, t, rows_c, cols_c
 
 
+def check_smooth_planes(n: int) -> None:
+    """Raise unless the smoothing stencil covers ``n`` march planes: its
+    taps lie up to ``K * STEP * n`` steps away, and past
+    :data:`SMOOTH_HALO` the outer taps would get no weight while still
+    counting in the normalisation (the JAX package's bound)."""
+    if GAUSSIAN_KERNEL_SIZE * GAUSSIAN_STEP * n > SMOOTH_HALO:
+        raise NotImplementedError(
+            f"Gaussian smoothing stencil (halo {SMOOTH_HALO}) only covers volumes up to "
+            f"{SMOOTH_MAX_PLANES} slabs (got {n})"
+        )
+
+
+def smooth_row(f: torch.Tensor, jf, rows, n: int, nr: int, nc: int, bilinear: bool) -> torch.Tensor:
+    """The Gaussian-smoothed density (M, R) of the march steps ``jf`` ((M, 1)
+    float32 step indices) from ``rows``, the 7 plain density rows (M, R) of
+    steps clamp(j-3 .. j+3) to [0, n-1].
+
+    The reference smooths along the ray with 5 taps at t-offsets delta =
+    i * 0.005 (``wgsl:44-75``).  A tap lies ``u = delta / ts`` march steps
+    from step j, a per-ray constant, so it is a hat (trilinear) or box
+    (nearest) combination of the plain rows j-3..j+3.  A tap counts where
+    it lies in the box (rows and columns bounded by the texel counts
+    ``nr``/``nc``, the slab axis by the plane count ``n``), and the sum is
+    normalised by the weights that count.  Every expression follows the
+    TPU kernel's ``_smooth_row`` (``slab_kernel.py:879-934``) and the CUDA
+    kernels' ``smooth_density`` (csrc/slab_common.cuh) in operation order,
+    ``delta / ts`` divided tensor by tensor."""
+    ts = torch.where(f[F_TS] == 0.0, 1.0, f[F_TS])  # padded-lane guard of the TPU kernel
+    rows_raw = f[F_RS] * jf + f[F_RB]
+    cols_raw = f[F_CS] * jf + f[F_CB]
+    total = torch.zeros_like(rows_raw)
+    wsum = torch.zeros_like(rows_raw)
+    for delta, w in GAUSS_TAPS:
+        u = torch.full_like(ts, delta) / ts
+        rt = rows_raw + u * f[F_RS]
+        ct = cols_raw + u * f[F_CS]
+        st = jf + u
+        in_box = (
+            (rt >= -0.5) & (rt <= nr - 0.5) & (ct >= -0.5) & (ct <= nc - 0.5) & (st >= -0.5) & (st <= n - 0.5)
+        )
+        del rt, ct, st
+        tap = torch.zeros_like(rows_raw)
+        for off in range(-SMOOTH_HALO, SMOOTH_HALO + 1):
+            d = u - off
+            ker = torch.clamp(1.0 - torch.abs(d), min=0.0) if bilinear else ((d >= -0.5) & (d < 0.5)).float()
+            tap = tap + ker * rows[off + SMOOTH_HALO]
+        wb = torch.where(in_box, w, 0.0)
+        total = total + wb * tap
+        wsum = wsum + wb
+    return total / torch.where(wsum > 0.0, wsum, 1.0)
+
+
+def smoothed_densities(feats: torch.Tensor, vol_perm: torch.Tensor, sign: int, params: RenderParams) -> torch.Tensor:
+    """(N, H, W) Gaussian-smoothed density at every march step j, the
+    counterpart of the jnp spec ``volym_tpu.render.slab.smoothed_densities``
+    (:func:`smooth_row` over the plain rows).  The plain row of step j is
+    the sample at the step's own snapped coordinates, whatever the ray's
+    t-window; rows beyond the sweep clamp to its end rows.  ``vol_perm``
+    as in :func:`march_slabs` (uint8 in the u8 domain: the stencil is linear
+    and normalised, so the smoothed scaled density is 255x the smoothed
+    density)."""
+    _, height, width = feats.shape
+    f = feats.reshape(N_FEATURES, -1)
+    n, nr, nc = vol_perm.shape
+    check_smooth_planes(n)
+    bilinear = params.interpolation == Interpolation.TRILINEAR
+    sample2d = _bilinear_slice if bilinear else _nearest_slice
+    plain = torch.stack([
+        sample2d(vol_perm[k], rows_c, cols_c)
+        for k, _, rows_c, cols_c in (_step_coords(f, j, n, nr, nc, sign, params.subtexel_bits) for j in range(n))
+    ])
+    idx = torch.arange(n, device=plain.device)
+    rows = [plain[torch.clamp(idx + o, 0, n - 1)] for o in range(-SMOOTH_HALO, SMOOTH_HALO + 1)]
+    del plain
+    out = smooth_row(f, idx.to(torch.float32)[:, None], rows, n, nr, nc, bilinear)
+    return out.reshape(n, height, width)
+
+
+def smooth_dd_transpose(feats: torch.Tensor, dd: torch.Tensor, nr: int, nc: int, bilinear: bool) -> torch.Tensor:
+    """Transpose of the smoothing stencil: the (N, H, W) smoothed-density
+    cotangent of every march step -> the cotangent of the plain rows, in
+    march order.  Plain row k takes ``c_off(j) * dd[j]`` for every (j, off)
+    with ``clamp(j + off) == k``, so the end rows collect the clamped taps;
+    ``c_off`` is the weight of row j+off in :func:`smooth_row`, normalised.
+    The counterpart of ``slab_bwd_kernel._smooth_dd_transpose``
+    (``:895-965``) in its operation order, with the in-plane bounds ``nr``/
+    ``nc`` (the texel counts) and the slab bound N.  The JAX package runs
+    it in jnp, outside its kernels; it runs as written here on every
+    device (the masks are kept as bools: ``where(in_box, x, 0)`` is
+    ``x * in_box`` for the x >= 0 it takes)."""
+    m, height, width = dd.shape
+    f = feats.reshape(N_FEATURES, -1)
+    ts = torch.where(f[F_TS] == 0.0, 1.0, f[F_TS])
+    jf = torch.arange(m, dtype=torch.float32, device=dd.device)[:, None]
+    rows_raw = f[F_RS] * jf + f[F_RB]  # (M, R)
+    cols_raw = f[F_CS] * jf + f[F_CB]
+    taps = []
+    wsum = torch.zeros_like(rows_raw)
+    for delta, w in GAUSS_TAPS:
+        u = torch.full_like(ts, delta) / ts  # (R,)
+        rt = rows_raw + u * f[F_RS]
+        ct = cols_raw + u * f[F_CS]
+        st = jf + u
+        in_box = (
+            (rt >= -0.5) & (rt <= nr - 0.5) & (ct >= -0.5) & (ct <= nc - 0.5) & (st >= -0.5) & (st <= m - 0.5)
+        )
+        del rt, ct, st
+        taps.append((w, u, in_box))
+        wsum = wsum + torch.where(in_box, w, 0.0)
+    del rows_raw, cols_raw
+    wsum = torch.where(wsum > 0.0, wsum, 1.0)
+    dd2 = dd.reshape(m, -1)
+    out = torch.zeros_like(dd2)
+    idx = torch.arange(m, device=dd.device)
+    for off in range(-SMOOTH_HALO, SMOOTH_HALO + 1):
+        coeff = torch.zeros_like(dd2)
+        for w, u, in_box in taps:
+            d = u - off
+            ker = torch.clamp(1.0 - torch.abs(d), min=0.0) if bilinear else ((d >= -0.5) & (d < 0.5)).float()
+            coeff = coeff + torch.where(in_box, w * ker, 0.0)
+        out.index_add_(0, torch.clamp(idx + off, 0, m - 1), coeff / wsum * dd2)
+    return out.reshape(m, height, width)
+
+
+def voxel_grad(feats: torch.Tensor, dd: torch.Tensor, vol_shape, sign: int, params: RenderParams):
+    """The voxel-gradient scatter: per-(march step, ray) cotangents ->
+    ``(d_vol, d_grad)``.  The plain version of the CUDA kernels
+    (``ops/csrc/voxel_grad.cu``) and the counterpart of the TPU's
+    ``_voxel_grad_kernel`` (B3) and ``_voxel_grad_shaded_kernel`` (B4).
+
+    ``dd``: (N, H, W) density cotangents in march order j, or (N, 4, H, W)
+    with the three gradient-field channels.  Step j's cotangent goes into
+    the physical plane k(j) with the sample's own bilinear or box weights at
+    its snapped coordinates (:func:`_scatter_sample`).  ``vol_shape``: (N,
+    rows, cols).  -> d_vol (N, rows, cols) and d_grad (3, N, rows, cols), or
+    None for a 1-channel ``dd``."""
+    f = feats.reshape(N_FEATURES, -1)
+    n, nr, nc = vol_shape
+    shaded = dd.dim() == 4
+    dd = dd.reshape(n, 4 if shaded else 1, -1)
+    bilinear = params.interpolation == Interpolation.TRILINEAR
+    d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dd.device)
+    d_grad = torch.zeros((3, n, nr, nc), dtype=torch.float32, device=dd.device) if shaded else None
+    for j in range(n):
+        k, _, rows_c, cols_c = _step_coords(f, j, n, nr, nc, sign, params.subtexel_bits)
+        _scatter_sample(d_vol[k], rows_c, cols_c, dd[j, 0], bilinear)
+        if shaded:
+            for ch in range(3):
+                _scatter_sample(d_grad[ch, k], rows_c, cols_c, dd[j, 1 + ch], bilinear)
+    return d_vol, d_grad
+
+
 def lookahead_gate(
     feats: torch.Tensor, cone_feats: torch.Tensor | None, levels: torch.Tensor, sign: int, subtexel: int
 ) -> torch.Tensor:
@@ -409,6 +585,11 @@ def march_slabs(
     a step whose bit is set adds nothing, as if its density were below the
     threshold.  The residual with a gate belongs to the look-ahead's
     backward, which is not ported yet.
+
+    With ``params.use_gaussian_smoothing`` the step's density is the
+    smoothed one (:func:`smoothed_densities`): the threshold mask, the TF
+    lookup and the residual's row 0 read it, while the gradient field is
+    still sampled at the step's own coordinates.
     """
     if gate is not None and emit_density:
         raise NotImplementedError("the stored-density residual with a look-ahead gate is not ported yet")
@@ -421,6 +602,9 @@ def march_slabs(
     shading = params.use_shading
     if shading and grad_perm is None:
         raise ValueError("shading needs the permuted gradient field")
+    smooth = (
+        smoothed_densities(feats, vol_perm, sign, params).reshape(n, -1) if params.use_gaussian_smoothing else None
+    )
 
     sign_ok = f[F_SIGNOK] > 0.5
     entry, exit_, aexp = f[F_ENTRY], f[F_EXIT], f[F_AEXP]
@@ -434,7 +618,7 @@ def march_slabs(
     )
     for j in range(n):
         k, t, rows_c, cols_c = _step_coords(f, j, n, nr, nc, sign, bits)
-        density = sample2d(vol_perm[k], rows_c, cols_c)
+        density = smooth[j] if smooth is not None else sample2d(vol_perm[k], rows_c, cols_c)
         live = sign_ok & (t >= entry) & (t < exit_) & (acc_a < early_alpha)
         m = live & (density >= threshold)
         if gate is not None:
@@ -495,6 +679,16 @@ def replay_slabs(
     (LN, 4).  The TF-coordinate derivative follows the TPU kernel: the
     slope ``lut[i1] - lut[i0]`` inside a texel, 0 at an integer coordinate,
     and none where the raw coordinate is clamped.
+
+    Under Gaussian smoothing the replay cannot scatter: a step's density
+    cotangent belongs to its smoothed density, a stencil over the plain
+    rows.  It then replays the smoothed density (stored, or re-sampled
+    through :func:`smoothed_densities`) and returns ``(dd, d_lut)``, the
+    TPU replay's unfused output: ``dd`` (N, H, W) holds each step's
+    smoothed-density cotangent in march order, or (N, 4, H, W) when shaded
+    with the gradient-field cotangent in rows 1..3, and exactly 0.0 at the
+    steps that composite nothing.  :func:`smooth_dd_transpose` and
+    :func:`voxel_grad` take it from there.
     """
     f = feats.reshape(N_FEATURES, -1)
     n_rays = f.shape[1]
@@ -506,10 +700,13 @@ def replay_slabs(
     bilinear = params.interpolation == Interpolation.TRILINEAR
     sample2d = _bilinear_slice if bilinear else _nearest_slice
     shading = params.use_shading
+    smoothing = params.use_gaussian_smoothing
     if shading and grad_perm is None and dens is None:
         raise ValueError("shading needs the permuted gradient field")
     if dens is not None:
         dens = dens.reshape(n, 4 if shading else 1, n_rays)
+    elif smoothing:
+        smooth = smoothed_densities(feats, vol_perm, sign, params).reshape(n, n_rays)
 
     sign_ok = f[F_SIGNOK] > 0.5
     entry, exit_, aexp = f[F_ENTRY], f[F_EXIT], f[F_AEXP]
@@ -518,14 +715,20 @@ def replay_slabs(
     g = g_img.reshape(n_rays, 4)
     g_c, g_a = g[:, :3], g[:, 3]
     dev = f.device
-    d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dev)
-    d_grad = torch.zeros((3, n, nr, nc), dtype=torch.float32, device=dev) if shading else None
+    if smoothing:
+        dd_out = torch.zeros((n, 4 if shading else 1, n_rays), dtype=torch.float32, device=dev)
+    else:
+        d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dev)
+        d_grad = torch.zeros((3, n, nr, nc), dtype=torch.float32, device=dev) if shading else None
     d_lut = torch.zeros((ln, 4), dtype=torch.float32, device=dev)
     acc_c = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
     acc_a = torch.zeros((n_rays,), dtype=torch.float32, device=dev)
     for j in range(n):
         k, t, rows_c, cols_c = _step_coords(f, j, n, nr, nc, sign, bits)
-        density = dens[j, 0] if dens is not None else sample2d(vol_perm[k], rows_c, cols_c)
+        if dens is not None:
+            density = dens[j, 0]
+        else:
+            density = smooth[j] if smoothing else sample2d(vol_perm[k], rows_c, cols_c)
         live = sign_ok & (t >= entry) & (t < exit_) & (acc_a < early_alpha)
         mf = (live & (density >= threshold)).float()
 
@@ -575,7 +778,10 @@ def replay_slabs(
             d_g = inv_norm * (d_n - nrm * n_dot_dn) * nzf
             d_rgb = d_rgb * torch.where(nonzero, shade_f, 1.0)
             for ch in range(3):
-                _scatter_sample(d_grad[ch, k], rows_c, cols_c, d_g[:, ch], bilinear)
+                if smoothing:
+                    dd_out[j, 1 + ch] = d_g[:, ch]
+                else:
+                    _scatter_sample(d_grad[ch, k], rows_c, cols_c, d_g[:, ch], bilinear)
         d_rgba = torch.cat([d_rgb, d_a[:, None]], dim=-1)
 
         d_lut.index_add_(0, i0, d_rgba * (1.0 - fr)[:, None])
@@ -583,7 +789,13 @@ def replay_slabs(
         slope = torch.where((fr > 0.0)[:, None], lut[i1] - lut[i0], 0.0)
         dd = (d_rgba * slope).sum(-1) * tf_scale
         dd = dd * ((c_raw > 0.0) & (c_raw < ln - 1.0)).float()
-        _scatter_sample(d_vol[k], rows_c, cols_c, dd, bilinear)
+        if smoothing:
+            dd_out[j, 0] = dd
+        else:
+            _scatter_sample(d_vol[k], rows_c, cols_c, dd, bilinear)
+    if smoothing:
+        height, width = out.shape[:2]
+        return (dd_out.reshape(n, 4, height, width) if shading else dd_out.reshape(n, height, width)), d_lut
     return d_vol, d_grad, d_lut
 
 
@@ -598,11 +810,12 @@ def render(scene, camera_matrices, params: RenderParams, height: int, width: int
 
 def render_diff(scene, camera_matrices, params: RenderParams, height: int, width: int) -> torch.Tensor:
     """Plain differentiable slab render -> (H, W, 4) on the scene's device:
-    :func:`march_slabs` forward and :func:`replay_slabs` backward, the
-    counterpart of the jnp ``slab.render_diff`` (see
-    :func:`volym_tpu_torch.ops.slab_march.render_diff`)."""
+    :func:`march_slabs` forward and :func:`replay_slabs` backward (with
+    :func:`voxel_grad` under smoothing), the counterpart of the jnp
+    ``slab.render_diff`` (see :func:`volym_tpu_torch.ops.slab_march.render_diff`)."""
     from volym_tpu_torch.ops import slab_march
 
     return slab_march.render_diff(
-        scene, camera_matrices, params, height, width, march_fn=march_slabs, replay_fn=replay_slabs
+        scene, camera_matrices, params, height, width, march_fn=march_slabs, replay_fn=replay_slabs,
+        scatter_fn=voxel_grad,
     )
