@@ -8,8 +8,9 @@ Phases, in order; any failure ends the run with a nonzero exit:
 1. require CUDA and print the card's name and power limit;
 2. build the CUDA kernels from ``volym_tpu_torch/ops/csrc`` (one nvcc per
    source, all started together): the march (B1), the replay (B2), the
-   voxel-gradient scatters (B3 and B4, one source) and the look-ahead gate
-   (B6 straight and B7 cone, one source);
+   voxel-gradient scatters (B3 and B4, one source), the plain rows' camera
+   chain (B5) and the look-ahead gate (B6 straight and B7 cone, one
+   source);
 3. hold the kernels to their plain PyTorch versions on the card: 64^3
    synthetic bonsai, 96x64 rays, every (major axis, sign) view x {nearest,
    trilinear} x {u8 native planes, f32 resampled planes} x {shaded,
@@ -26,7 +27,13 @@ Phases, in order; any failure ends the run with a nonzero exit:
    its residual, bit for bit (48), the unfused replay from the residual and
    re-sampled (96), whose two routes must give the same cotangents bit for
    bit, and the scatters B3 (unshaded) and B4 (shaded) on the folded
-   cotangents (48);
+   cotangents (48); then camera gradients (``camera_grads=True``, so f32)
+   on the 64^3 bonsai, and on the 256^3 one under smoothing, at 96x64
+   rays, every view x {nearest, trilinear} x {shaded, unshaded} x
+   {smoothing off, on}: B2's camera mode against the plain replay (48,
+   d_feats among its outputs) and, under trilinear smoothing, B5 against
+   the plain rows' chain on the folded cotangents (12), with the counts of
+   bit-equal d_feats printed;
 4. serving: render the 256^3 synthetic bonsai at 1024x768 through
    ``make_renderer(..., backend="slab_cuda")``, 10 orbit frames 2 degrees
    apart in each of four configurations: the bench forward (trilinear, u8,
@@ -70,7 +77,16 @@ Phases, in order; any failure ends the run with a nonzero exit:
    stencil's transpose, B3/B4 (beside ``index_add_`` of the precomputed
    corner indices and weights) and the whole step are timed with CUDA
    events, and a step is profiled; at 1024x768 the re-sampled route is also
-   forced (a zero residual budget) and its step checked and timed;
+   forced (a zero residual budget) and its step checked and timed; then the
+   smoothed training step with camera gradients (the default
+   ``camera_grads=True``; f32 planes, re-sampled replay) in both smoothed
+   configurations at 1024x768, a few steps each, with ``inverse_view_proj``
+   and ``position`` as leaves: the launch counts of B1, B2, B3 or B4, and
+   B5 (trilinear only) equal the steps; step 0's image, d_volume, d_lut
+   and camera gradient are checked against the plain step; B2 with and
+   without its camera chain, the transpose, B5 (with its bound) and the
+   whole step are timed with CUDA events beside the step without camera
+   gradients, and a step is profiled;
 7. descent: 20 Adam steps (lr 1e-2, clamped to [0, 1]) on the volume and
    the LUT from a flat volume towards an image of the bonsai, on the f32
    stream (u8_volume=False, as fitting requires); the loss must fall;
@@ -99,6 +115,7 @@ FRAMES = 10
 TRAIN_SIZES = ((256, 256), (FULL_H, FULL_W))
 TRAIN_STEPS = 4
 GAUSS_TRAIN_STEPS = 3
+CAM_STEPS = 3
 DESCENT_STEPS = 20
 ORBITS = [(30.0, 20.0), (210.0, 20.0), (120.0, 10.0), (300.0, -10.0), (20.0, 70.0), (20.0, -70.0)]
 KERNELS = {
@@ -108,6 +125,7 @@ KERNELS = {
     "lookahead_cone": ("volym_tpu_torch/ops/csrc/lookahead.cu", "volym_tpu/ops/lookahead_kernel.py:262"),
     "voxel_grad": ("volym_tpu_torch/ops/csrc/voxel_grad.cu", "volym_tpu/ops/slab_bwd_kernel.py:1127"),
     "voxel_grad_shaded": ("volym_tpu_torch/ops/csrc/voxel_grad.cu", "volym_tpu/ops/slab_bwd_kernel.py:1198"),
+    "feats_grad": ("volym_tpu_torch/ops/csrc/feats_grad.cu", "volym_tpu/ops/slab_bwd_kernel.py:968"),
 }
 #: the sources to build, one nvcc each: csrc/<name>.cu
 SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()})
@@ -127,6 +145,10 @@ SMOOTH_OPS_PER_STEP = 300
 #: f32 operations of the scatter (csrc/voxel_grad.cu) a nonzero channel:
 #: the coordinates and the snap once, and the 4 weights and products
 SCATTER_OPS_PER_ENTRY = 30
+#: f32 operations of the plain rows' camera chain (csrc/feats_grad.cu) a
+#: nonzero cotangent: the raw coordinates, the clip and the snap, dsample's
+#: fractions and its two contractions, the masks and the four sums
+FEATS_GRAD_OPS_PER_ENTRY = 45
 #: f32 operations of the gate kernels (csrc/lookahead.cu), counted from the
 #: source: every swept step of a live ray (t and the window compares), a
 #: valid step's range test (straight: norm_pos, the quotient, the compare
@@ -290,7 +312,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU")
     from volym_tpu_torch import BENCHMARK_PARAMS, Camera, RenderParams, Scene, cli, convert, parity
-    from volym_tpu_torch.ops import _build, lookahead, slab_march, slab_replay, voxel_grad
+    from volym_tpu_torch.ops import _build, feats_grad, lookahead, slab_march, slab_replay, voxel_grad
     from volym_tpu_torch.render import slab
     from volym_tpu_torch.render.renderer import make_renderer
 
@@ -521,6 +543,55 @@ def main() -> int:
     if (n_smooth, n_smooth_replay, n_scatter) != (48, 96, 48) or n_engaged != 48:
         raise AssertionError(f"{n_smooth}, {n_smooth_replay}, {n_scatter} smoothing cases ran, expected 48, 96, 48; "
                              f"smoothing changed {n_engaged} images")
+
+    # camera gradients: B2's camera mode and B5 against their plain versions
+    # (f32: camera cotangents turn the u8 stream and the residual off), the
+    # smoothed cases on the 256^3 bonsai
+    n_cam, n_cam_bits, n_b5, n_b5_bits = 0, 0, 0, 0
+    for h, v in ORBITS:
+        cam = Camera(aspect=SMALL_W / SMALL_H, distance=1.3).orbit(h, v, 0.0).matrices()
+        view = slab.dominant_axis(cam)
+        for interp in ("nearest", "trilinear"):
+            tri = interp == "trilinear"
+            for shading in (False, True):
+                for smooth in (False, True):
+                    label = f"camera view {view} {interp} shading={shading} smoothing={smooth}"
+                    step = (0.005 if tri else 0.01) if smooth else (1.0 if tri else 2.0) / SMALL_SIDE
+                    p = RenderParams(use_gaussian_smoothing=smooth, interpolation=interp, use_shading=shading,
+                                     raymarching_step_size=step, density_threshold=0.12)
+                    feats, vol, lut, sign, grad, u8 = slab_march.prepare(scene if smooth else small, cam, p, SMALL_H,
+                                                                         SMALL_W)
+                    if u8:
+                        raise AssertionError(f"{label}: expected the f32 stream")
+                    img = slab_march.march_cuda(feats, vol, lut, sign, p, grad)
+                    want = slab.replay_slabs(feats, vol, lut, sign, p, img, g_small, grad)
+                    got = slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g_small, grad)
+                    torch.cuda.synchronize()
+                    if not all(bool(torch.isfinite(t).all()) for t in got if t is not None):
+                        raise AssertionError(f"{label}: non-finite")
+                    if float(want[-1].abs().max()) <= 0.0:
+                        raise AssertionError(f"{label}: zero d_feats")
+                    for name, a, b in zip(("dd" if smooth else "d_vol", "d_grad"), want[:-2], got[:-2]):
+                        if a is not None:
+                            hold("slab_replay", a, b, f"{label} {name}")
+                    hold("slab_replay", want[-2], got[-2], f"{label} d_lut", lut)
+                    hold("slab_replay", want[-1], got[-1], f"{label} d_feats")
+                    n_cam, n_cam_bits = n_cam + 1, n_cam_bits + torch.equal(want[-1], got[-1])
+                    if smooth and tri:
+                        folded = slab_march.fold_smoothed(feats, want[0].clone(), vol.shape, p)
+                        plain_dd = folded[:, 0] if shading else folded
+                        b5 = feats_grad.feats_grad_cuda(feats, vol, plain_dd, sign, p)
+                        plain_b5 = slab.feats_grad(feats, vol, plain_dd, sign, p)
+                        torch.cuda.synchronize()
+                        if float(plain_b5.abs().max()) <= 0.0:
+                            raise AssertionError(f"{label}: zero B5 output")
+                        hold("feats_grad", plain_b5, b5, f"{label} B5")
+                        n_b5, n_b5_bits = n_b5 + 1, n_b5_bits + torch.equal(plain_b5, b5)
+    log(f"small camera: B2's camera chain == plain in {n_cam}/48 cases (d_feats bit for bit in {n_cam_bits}); "
+        f"B5 == plain in {n_b5}/12 (bit for bit in {n_b5_bits}; max abs err {err['feats_grad']:.3e}, over its scale "
+        f"{rel['feats_grad']:.3e})")
+    if (n_cam, n_b5) != (48, 12):
+        raise AssertionError(f"{n_cam}, {n_b5} camera cases ran, expected 48, 12")
 
     # phase 4: serving at full size
     configs = {
@@ -976,6 +1047,142 @@ def main() -> int:
         log(f"{label}: {json.dumps(row)}")
         del out, dens, dd, dd0, folded, g, idx, vals, lib, d_v, d_g, plain_v, plain_g
 
+    # phase 6c: the smoothed training step with camera gradients: B1 on f32
+    # planes, B2 with its camera chain (re-sampled), the transpose, B3 or B4,
+    # and B5 under trilinear sampling; autograd carries d_feats to the camera
+    cam_train = {name: configs[name].replace(camera_grads=True) for name in ("bench_gaussian", "cli_default_gaussian")}
+    cam0 = Camera(aspect=FULL_W / FULL_H, distance=1.0).orbit(30.0, 20.0, 0.0)
+
+    def cam_leaves():
+        cm = cam0.matrices()
+        cm.inverse_view_proj.requires_grad_(True)
+        cm.position.requires_grad_(True)
+        return cm
+
+    def camera_grads(cm):
+        return {leaf: getattr(cm, leaf).grad for leaf in ("view", "proj", "inverse_view_proj", "position")}
+
+    def ccounts():
+        return (slab_march.LAUNCHES, slab_replay.LAUNCHES, voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES,
+                feats_grad.LAUNCHES)
+
+    ctrainers = {}
+    for name, p in cam_train.items():
+        s = leaf_scene(scene.volume, scene.tf_lut)
+        ctrainers[name] = (p, s, make_renderer(s, p, FULL_H, FULL_W, backend="slab_cuda", device=dev,
+                                               differentiable=True))
+    cstep0, cper = {}, {}
+    # the camera-gradient training path starts here
+    slab_march.LAUNCHES = slab_replay.LAUNCHES = voxel_grad.LAUNCHES = voxel_grad.SHADED_LAUNCHES = 0
+    feats_grad.LAUNCHES = 0
+    for name, (p, s, render) in ctrainers.items():
+        before = ccounts()
+        for i in range(CAM_STEPS):
+            s.volume.grad = s.tf_lut.grad = None
+            cm = cam_leaves()
+            img = render(cm)
+            img.sum().backward()
+            if i == 0:
+                cstep0[name] = (img.detach().clone(), s.volume.grad.clone(), s.tf_lut.grad.clone(), camera_grads(cm))
+        torch.cuda.synchronize()
+        cper[name] = tuple(a - b for a, b in zip(ccounts(), before))
+    ctrain_launches = ccounts()  # the camera-gradient training path ends here
+    for name, launched in cper.items():
+        p = cam_train[name]
+        shaded, tri = p.use_shading, p.interpolation.value == "trilinear"
+        want = (CAM_STEPS, CAM_STEPS, 0 if shaded else CAM_STEPS, CAM_STEPS if shaded else 0, CAM_STEPS if tri else 0)
+        if launched != want:
+            raise AssertionError(f"camera training {name}: (march, replay, B3, B4, B5) launches {launched}, "
+                                 f"expected {want}")
+    log(f"camera training: (march, replay, B3, B4, B5) launches {ctrain_launches} for {len(ctrainers)} x "
+        f"{CAM_STEPS} steps ({cper})")
+
+    ctraining = {}
+    for name, (p, s, render) in ctrainers.items():
+        rays = FULL_H * FULL_W
+        shaded, tri = p.use_shading, p.interpolation.value == "trilinear"
+        kernel = "voxel_grad_shaded" if shaded else "voxel_grad"
+        label = f"camera training {name} {FULL_H}x{FULL_W}"
+        img, d_vol, d_lut, d_cam = cstep0[name]
+        if not all(bool(torch.isfinite(t).all()) for t in (img, d_vol, d_lut, d_cam["position"])):
+            raise AssertionError(f"{label}: non-finite step 0")
+        if float(d_cam["position"].abs().max()) <= 0.0 or d_cam["view"] is not None:
+            raise AssertionError(f"{label}: no camera gradient, or one on the view matrix")
+
+        def plain_step(p=p):
+            ps = leaf_scene(scene.volume, scene.tf_lut)
+            cm = cam_leaves()
+            out = slab.render_diff(ps, cm, p, FULL_H, FULL_W)
+            out.sum().backward()
+            return out.detach(), ps.volume.grad, ps.tf_lut.grad, camera_grads(cm)
+
+        t0 = time.perf_counter()
+        plain_img, plain_vol, plain_lut, plain_cam = plain_step()
+        torch.cuda.synchronize()
+        plain_step_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(plain_img, img):
+            raise AssertionError(f"{label}: the image differs from the plain step's")
+        agree = {}
+        r, _ = hold(kernel, plain_vol, d_vol, f"{label} step 0 d_volume")
+        agree["d_volume"] = dict(max_abs_err=r.max_abs_err, scale=r.scale, edge_share=r.edge_frac)
+        r, worst = hold("slab_replay", plain_lut, d_lut, f"{label} step 0 d_lut", scene.tf_lut)
+        agree["d_lut"] = dict(max_abs_err=r.max_abs_err, scale=r.scale, opaque_err_over_magnitude=worst)
+        for leaf, r in parity.check_camera_grad(plain_cam, d_cam, f"{label} step 0").items():
+            agree[f"d_{leaf}"] = dict(max_abs_err=r.max_abs_err, scale=r.scale)
+        del plain_img, plain_vol, plain_lut
+
+        # the kernels on this step's inputs: f32 planes, the replay re-sampled
+        cm = cam0.matrices()
+        feats, vol, lut, sign, grad, _ = slab_march.prepare(scene, cm, p.replace(u8_volume=False), FULL_H, FULL_W)
+        out = slab_march.march_cuda(feats, vol, lut, sign, p, grad)
+        g = torch.ones_like(out)
+        dd = slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad)[0]
+        dd0 = dd[:, 0] if shaded else dd
+        folded = slab_march.fold_smoothed(feats, dd.clone(), vol.shape, p)
+        plain_dd = folded[:, 0] if shaded else folded
+        nocam = p.replace(camera_grads=False)
+        row = dict(
+            planes=int(vol.shape[0]), shading=shaded, interpolation=p.interpolation.value,
+            fwd_ms=cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad), 10),
+            replay_camera_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad), 10),
+            replay_no_camera_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, nocam, out, g, grad), 10),
+            transpose_ms=cuda_ms(lambda: slab.smooth_dd_transpose(feats, dd0, vol.shape[1], vol.shape[2], tri), 3),
+            scatter_ms=cuda_ms(lambda: voxel_grad.scatter_cuda(feats, folded, vol.shape, sign, p), 10),
+        )
+        if tri:
+            b5 = feats_grad.feats_grad_cuda(feats, vol, plain_dd, sign, p)
+            plain_b5 = slab.feats_grad(feats, vol, plain_dd, sign, p)
+            torch.cuda.synchronize()
+            r, _ = hold("feats_grad", plain_b5, b5, f"{label} B5")
+            entries = int((plain_dd != 0.0).sum())
+            b5_bound = bound(plain_dd.numel() * 4 + vol.numel() * 4 + 2 * 4 * rays * 4,
+                             entries * FEATS_GRAD_OPS_PER_ENTRY)
+            row.update(
+                feats_grad_ms=cuda_ms(lambda: feats_grad.feats_grad_cuda(feats, vol, plain_dd, sign, p), 10),
+                plain_feats_grad_ms=cuda_ms(lambda: slab.feats_grad(feats, vol, plain_dd, sign, p), 1),
+                feats_grad_bound=b5_bound, feats_grad_entries=entries, feats_grad_max_abs_err=r.max_abs_err,
+                feats_grad_bitwise=torch.equal(plain_b5, b5),
+            )
+            del b5, plain_b5
+
+        def kernel_step(s=s, render=render):
+            s.volume.grad = s.tf_lut.grad = None
+            render(cam_leaves()).sum().backward()
+
+        nocam_render = make_renderer(s, nocam, FULL_H, FULL_W, backend="slab_cuda", device=dev, differentiable=True)
+
+        def nocam_step(s=s):
+            s.volume.grad = s.tf_lut.grad = None
+            nocam_render(cam0.matrices()).sum().backward()
+
+        row.update(
+            step_ms=cuda_ms(kernel_step, 5), no_camera_step_ms=cuda_ms(nocam_step, 5), plain_step_ms=plain_step_ms,
+            profile=device_profile(kernel_step, 3), step0=agree,
+        )
+        ctraining[name] = row
+        log(f"{label}: {json.dumps(row)}")
+        del out, g, dd, dd0, folded, plain_dd
+
     # phase 7: a few descent steps on the f32 stream
     fit_p = train_p.replace(u8_volume=False)
     dh, dw = TRAIN_SIZES[0]
@@ -1039,8 +1246,14 @@ def main() -> int:
                             library_ms=g["scatter_library_ms"],
                             library="index_add_ of the precomputed corner indices and weights, "
                                     "their computation excluded")
-    rows["slab_march"]["launches"] += gtrain_launches[0]
-    rows["slab_replay"]["launches"] += gtrain_launches[1]
+    rows["slab_march"]["launches"] += gtrain_launches[0] + ctrain_launches[0]
+    rows["slab_replay"]["launches"] += gtrain_launches[1] + ctrain_launches[1]
+    rows["voxel_grad"]["launches"] += ctrain_launches[2]
+    rows["voxel_grad_shaded"]["launches"] += ctrain_launches[3]
+    # B5 at 1024x768 in the smoothed bench step with camera gradients
+    c = ctraining["bench_gaussian"]
+    rows["feats_grad"] = dict(launches=ctrain_launches[4], ms=c["feats_grad_ms"], plain_ms=c["plain_feats_grad_ms"],
+                              bound_ms=c["feats_grad_bound"][0], bound_by=c["feats_grad_bound"][1])
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
          "launches": row["launches"], "max_abs_err": err[name], "max_rel_err": rel[name],

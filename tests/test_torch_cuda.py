@@ -1,5 +1,6 @@
-"""The CUDA march, replay, voxel-gradient scatter and look-ahead gate kernels
-against their plain PyTorch versions, on the card.
+"""The CUDA march, replay (with its camera chain), voxel-gradient scatter,
+plain-row camera chain and look-ahead gate kernels against their plain
+PyTorch versions, on the card.
 
 Marked ``cuda``: these skip where ``torch.cuda.is_available()`` is false.
 Run them on a GPU machine with
@@ -12,7 +13,7 @@ import torch
 
 from chip_smoke import three_level_scene
 from volym_tpu_torch import Camera, RenderParams, Scene, convert, parity
-from volym_tpu_torch.ops import lookahead, slab_march, slab_replay, voxel_grad
+from volym_tpu_torch.ops import feats_grad, lookahead, slab_march, slab_replay, voxel_grad
 from volym_tpu_torch.render import slab
 from volym_tpu_torch.render.renderer import make_renderer
 
@@ -351,3 +352,102 @@ def test_smoothing_kernels_check_inputs(scene256):
         voxel_grad.scatter_cuda(feats, dd[:, :3], vol.shape, sign, p)
     with pytest.raises(ValueError, match="on cpu"):
         voxel_grad.scatter_cuda(feats, dd.cpu(), vol.shape, sign, p)
+
+
+#: camera gradients: (interpolation, shading, smoothing), every mode
+CAMERA_MODES = [(i, sh, sm) for i in ("nearest", "trilinear") for sh in (False, True) for sm in (False, True)]
+
+
+def _camera_inputs(scene, scene256, h, v, interp, shading, smooth):
+    """f32 inputs with ``camera_grads=True``: the 32^3 scene at native
+    planes unsmoothed, the 256^3 scene at 256 planes under smoothing."""
+    p = RenderParams(use_gaussian_smoothing=smooth, interpolation=interp, use_shading=shading,
+                     raymarching_step_size=0.005 if smooth else 1.0 / SIDE)
+    s = scene256 if smooth else scene
+    cam = Camera(aspect=W / H, distance=1.3).orbit(h, v, 0.0).matrices()
+    feats, vol, lut, sign, grad, u8 = slab_march.prepare(s, cam, p, H, W)
+    assert not u8 and vol.dtype == torch.float32
+    return p, feats, vol, lut, sign, grad
+
+
+@pytest.mark.parametrize("interp,shading,smooth", CAMERA_MODES)
+@pytest.mark.parametrize("h,v", ORBITS[:2])
+def test_camera_replay_and_feats_grad_match_plain(scene, scene256, h, v, interp, shading, smooth):
+    """B2's camera mode against the plain replay (d_feats and the other
+    outputs by the repo rule, d_lut by the two-group rule), and under
+    trilinear smoothing B5 against the plain rows' chain on the folded
+    cotangents, read through a channel view when shaded."""
+    p, feats, vol, lut, sign, grad = _camera_inputs(scene, scene256, h, v, interp, shading, smooth)
+    img = slab_march.march_cuda(feats, vol, lut, sign, p, grad)
+    g = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (H, W, 4)).astype(np.float32)).to(img.device)
+    want = slab.replay_slabs(feats, vol, lut, sign, p, img, g, grad)
+    got = slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g, grad)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for a, b in zip(want[:-2], got[:-2]):
+        if a is not None:
+            parity.check_close(a, b, "replay")
+    parity.check_lut_grad(want[-2], got[-2], lut, "d_lut")
+    assert float(want[-1].abs().max()) > 0
+    parity.check_close(want[-1], got[-1], "d_feats")
+    if smooth and interp == "trilinear":
+        folded = slab_march.fold_smoothed(feats, want[0].clone(), vol.shape, p)
+        plain_dd = folded[:, 0] if shading else folded
+        before = feats_grad.LAUNCHES
+        b5 = feats_grad.feats_grad_cuda(feats, vol, plain_dd, sign, p)
+        assert feats_grad.LAUNCHES == before + 1
+        plain_b5 = slab.feats_grad(feats, vol, plain_dd, sign, p)
+        torch.cuda.synchronize()
+        assert float(plain_b5.abs().max()) > 0
+        parity.check_close(plain_b5, b5, "feats_grad")
+
+
+@pytest.mark.parametrize("interp,shading", [("trilinear", False), ("nearest", True), ("trilinear", True)])
+def test_camera_differentiable_renderer_counts_launches(scene256, device, interp, shading):
+    """The smoothed training step with camera gradients launches B1, B2, B3
+    (or B4 when shaded) and, with trilinear sampling, B5 once each; its
+    image, volume, LUT and camera gradients agree with the plain step's."""
+    p = RenderParams(interpolation=interp, use_shading=shading, raymarching_step_size=0.005)
+
+    def step(render_fn):
+        vol = scene256.volume.clone().requires_grad_(True)
+        lut = scene256.tf_lut.clone().requires_grad_(True)
+        cam = Camera(aspect=W / H).orbit(10.0, 5.0, 0.0).matrices()
+        cam.inverse_view_proj.requires_grad_(True)
+        cam.position.requires_grad_(True)
+        img = render_fn(Scene(vol, scene256.importance, lut))(cam)
+        img.sum().backward()
+        return img.detach(), vol.grad, lut.grad, {"inverse_view_proj": cam.inverse_view_proj.grad,
+                                                  "position": cam.position.grad, "view": cam.view.grad}
+
+    def counts():
+        return (slab_march.LAUNCHES, slab_replay.LAUNCHES, voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES,
+                feats_grad.LAUNCHES)
+
+    before = counts()
+    got = step(lambda s: make_renderer(s, p, H, W, backend="slab_cuda", device=device, differentiable=True))
+    launched = tuple(a - b for a, b in zip(counts(), before))
+    assert launched == (1, 1, int(not shading), int(shading), int(interp == "trilinear"))
+    want = step(lambda s: make_renderer(s, p, H, W, backend="slab", device=device, differentiable=True))
+    assert torch.equal(want[0], got[0])
+    parity.check_close(want[1], got[1], "d_volume")
+    parity.check_lut_grad(want[2], got[2], scene256.tf_lut, "d_lut")
+    assert float(got[3]["position"].abs().max()) > 0 and got[3]["view"] is None
+    parity.check_camera_grad(want[3], got[3], "camera")
+
+
+def test_feats_grad_cuda_checks_inputs(scene256):
+    p, feats, vol, lut, sign, grad = _camera_inputs(scene256, scene256, 30.0, 20.0, "trilinear", True, True)
+    dd = torch.zeros((vol.shape[0], 4, H, W), device=vol.device)
+    with pytest.raises(ValueError, match="trilinear"):
+        feats_grad.feats_grad_cuda(feats, vol, dd[:, 0], sign, p.replace(interpolation="nearest"))
+    with pytest.raises(ValueError, match="dd"):
+        feats_grad.feats_grad_cuda(feats, vol, dd[:-1, 0], sign, p)
+    with pytest.raises(ValueError, match="planes must be contiguous"):
+        feats_grad.feats_grad_cuda(feats, vol, torch.zeros_like(dd[:, :2]).reshape(-1, H, 2 * W)[:vol.shape[0], :, ::2],
+                                   sign, p)
+    with pytest.raises(ValueError, match="on cpu"):
+        feats_grad.feats_grad_cuda(feats, vol.cpu(), dd[:, 0], sign, p)
+    with pytest.raises(ValueError, match="re-sampled replay"):
+        slab_replay.replay_cuda(feats, vol, lut, sign, p, dd[0, :3].permute(1, 2, 0).contiguous(),
+                                torch.zeros((H, W, 4), device=vol.device), grad, dens=dd[:, :1])

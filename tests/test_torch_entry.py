@@ -106,14 +106,19 @@ def test_renderer_unported_modes_raise(kw):
 
 
 def test_renderer_differentiable_raises():
-    """The differentiable render has no camera gradients yet: the default
-    ``camera_grads=True`` raises, naming the mode, as do the unported
-    render modes."""
+    """The differentiable render trains with the default ``RenderParams()``
+    (``camera_grads=True``, smoothing on) and yields camera gradients; the
+    unported render modes raise, naming the mode."""
     scene = Scene.synthetic("sphere", side=8)
-    with pytest.raises(NotImplementedError, match="camera gradients"):
-        make_renderer(scene, BASE, 8, 8, backend="slab", device="cpu", differentiable=True)
-    with pytest.raises(NotImplementedError, match="camera gradients"):
-        slab_march.render_diff(scene, Camera().matrices(), BASE, 8, 8)
+    vol = scene.volume.clone().requires_grad_(True)
+    render = make_renderer(Scene(vol, scene.importance, scene.tf_lut), RenderParams(), 8, 8, backend="slab",
+                           device="cpu", differentiable=True)
+    cm = Camera().orbit(20.0, 10.0, 0.0).matrices()
+    cm.inverse_view_proj.requires_grad_(True)
+    cm.position.requires_grad_(True)
+    render(cm).sum().backward()
+    assert float(vol.grad.abs().max()) > 0
+    assert float(cm.inverse_view_proj.grad.abs().max()) > 0 and float(cm.position.grad.abs().max()) > 0
     diff = BASE.replace(camera_grads=False)
     for kw, name in ((dict(use_gaussian_smoothing=True, use_opacity=False), "first-hit"),
                      (dict(use_importance_coloring=True), "coloring"),
@@ -164,7 +169,7 @@ def test_march_cuda_refuses_cpu_tensors():
 
 
 def test_u8_domain_selection():
-    p = BASE.replace(u8_volume=True, interpolation="trilinear", raymarching_step_size=1.0 / 16.0)
+    p = BASE.replace(u8_volume=True, interpolation="trilinear", raymarching_step_size=1.0 / 16.0, camera_grads=False)
     assert slab_march.u8_active(p, 16, 16)
     assert not slab_march.u8_active(p, 8, 16)  # resampled planes
     assert not slab_march.u8_active(p.replace(subtexel_bits=0), 16, 16)

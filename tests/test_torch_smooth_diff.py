@@ -157,7 +157,7 @@ def test_smoothed_backward_matches_autograd_of_the_plain_march(interp, side):
     img = slab.march_slabs(feats, vp, lut, sign, p)
     (img * g).sum().backward()
     dd, d_lut = slab.replay_slabs(feats, vol_perm, lut.detach(), sign, p, img.detach(), g)
-    d_vp, _ = slab_march.smooth_backward(feats, dd, vol_perm.shape, sign, p, slab.voxel_grad)
+    d_vp, _, _ = slab_march.smooth_backward(feats, dd, vol_perm, sign, p, slab.voxel_grad, slab.feats_grad)
     parity.check_close(vp.grad, d_vp, "d_vol")
     parity.check_close(lut.grad, d_lut, "d_lut")
 
@@ -177,8 +177,11 @@ def test_scatter_dispatches_cpu_tensors_to_plain_version(scene):
 
 
 def test_render_diff_still_refuses_camera_gradients_and_lookahead(scene):
-    cam = Camera().matrices()
-    with pytest.raises(NotImplementedError, match="camera gradients.*next slice"):
-        slab_march.render_diff(scene, cam, RenderParams(), 8, 8)
+    """Camera gradients run with smoothing (the default ``RenderParams()``),
+    through B5's plain version; look-ahead is still refused."""
+    cam = Camera().orbit(30.0, 20.0, 0.0).matrices()
+    cam.position.requires_grad_(True)
+    slab_march.render_diff(scene, cam, RenderParams(interpolation="trilinear"), 8, 8).sum().backward()
+    assert float(cam.position.grad.abs().max()) > 0
     with pytest.raises(NotImplementedError, match="look-ahead"):
         slab_march.render_diff(scene, cam, RenderParams(camera_grads=False, use_importance_rendering=True), 8, 8)

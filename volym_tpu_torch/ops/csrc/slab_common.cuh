@@ -1,11 +1,13 @@
 // Device helpers shared by the slab march (slab_march.cu), its replay
-// backward (slab_replay.cu), the voxel-gradient scatters (voxel_grad.cu)
-// and the look-ahead gate (lookahead.cu): the per-ray and cone tables'
-// rows, the subtexel snap, the nearest tap, the clamp-to-edge slice sample
-// and its transpose, the TF texel lookup and the Gaussian smoothing
-// stencil.  The kernels must evaluate these expressions identically, bit
-// for bit (build with --fmad=false), so that the replay reproduces the
-// forward's masks and the gate the march's samples.
+// backward (slab_replay.cu), the voxel-gradient scatters (voxel_grad.cu),
+// the plain rows' camera chain (feats_grad.cu) and the look-ahead gate
+// (lookahead.cu): the per-ray and cone tables' rows, the subtexel snap, the
+// nearest tap, the clamp-to-edge slice sample, its transpose and its
+// coordinate derivative, the TF texel lookup and the Gaussian smoothing
+// stencil with its tap-offset derivative.  The kernels must evaluate these
+// expressions identically, bit for bit (build with --fmad=false), so that
+// the replay reproduces the forward's masks and the gate the march's
+// samples.
 
 #pragma once
 
@@ -93,6 +95,28 @@ __device__ __forceinline__ void scatter(float* __restrict__ sl, float rows, floa
     } else {
         atomicAdd(sl + nearest_index(rows, cols, nr, nc), v);
     }
+}
+
+// d sample / d (rows, cols) of a bilinear sample of an f32 slice at snapped
+// texel coordinates (volym_tpu_torch/render/slab.py _dsample): the hats'
+// derivative contracted with the other axis' hats, as the TPU's _dhat
+// (slab_bwd_kernel.py:94-115, 826-842).  Half-open: at a coordinate on
+// texel i the derivative is v[i+1] - v[i].  Texel nr (nc) is absent from
+// the TPU's hats and counts as 0, not as a clamped copy of texel nr - 1, so
+// a coordinate snapped onto nr - 1 has derivative -v[nr-1].  The snapped
+// coordinates lie in [0, nr-1] x [0, nc-1]; the caller masks the chain
+// where the raw coordinate is clipped.
+__device__ __forceinline__ float2 dsample(const float* __restrict__ sl, float rows, float cols, int nr, int nc) {
+    const float r0f = floorf(rows), c0f = floorf(cols);
+    const float tr = rows - r0f, tc = cols - c0f;
+    const int r0 = (int)r0f, c0 = (int)c0f;
+    const bool r1_in = r0 + 1 < nr, c1_in = c0 + 1 < nc;
+    const float v00 = texel(sl, r0 * nc + c0);
+    const float v01 = c1_in ? texel(sl, r0 * nc + c0 + 1) : 0.0f;
+    const float v10 = r1_in ? texel(sl, (r0 + 1) * nc + c0) : 0.0f;
+    const float v11 = (r1_in && c1_in) ? texel(sl, (r0 + 1) * nc + c0 + 1) : 0.0f;
+    const float ur = 1.0f - tr, uc = 1.0f - tc;
+    return make_float2((v10 - v00) * uc + (v11 - v01) * tc, (v01 * ur + v11 * tr) - (v00 * ur + v10 * tr));
 }
 
 // the two LUT texels and weights of a linear TF lookup: texel centres at
@@ -211,6 +235,42 @@ __device__ __forceinline__ float smooth_density(const float (&d)[SMOOTH_ROWS], i
         }
         const float wb = in_box ? gauss_weight(i) : 0.0f;
         total = total + wb * tap;
+        wsum = wsum + wb;
+    }
+    return total / (wsum > 0.0f ? wsum : 1.0f);
+}
+
+// d(smoothed density)/d(F_TS) of march step j (slab.py smooth_row_dts; the
+// TPU's _smooth_row_dts, slab_bwd_kernel.py:118-166): the in-box masks and
+// wsum are indicators, so only the hats ker(u - off) chain, with
+// du/dts = -delta / ts^2 (the raw ts), normalised by wsum.  Bilinear only:
+// box hats have no derivative.
+__device__ __forceinline__ float smooth_density_dts(const float (&d)[SMOOTH_ROWS], int j, float rs, float rb,
+                                                    float cs, float cb, float ts_raw, int n, int nr, int nc) {
+    const float ts = ts_raw == 0.0f ? 1.0f : ts_raw;
+    const float jf = (float)j;
+    const float rows_raw = rs * jf + rb;
+    const float cols_raw = cs * jf + cb;
+    const float bnd_r = (float)nr - 0.5f, bnd_c = (float)nc - 0.5f, bnd_s = (float)n - 0.5f;
+    const float ts2 = ts_raw * ts_raw;
+    float total = 0.0f, wsum = 0.0f;
+#pragma unroll
+    for (int i = 0; i < GAUSS_TAPS; ++i) {
+        const float u = gauss_delta(i) / ts;
+        const float rt = rows_raw + u * rs;
+        const float ct = cols_raw + u * cs;
+        const float st = jf + u;
+        const bool in_box = rt >= -0.5f && rt <= bnd_r && ct >= -0.5f && ct <= bnd_c && st >= -0.5f && st <= bnd_s;
+        const float du_dts = -gauss_delta(i) / ts2;
+        float dtap = 0.0f;
+#pragma unroll
+        for (int o = 0; o < SMOOTH_ROWS; ++o) {
+            const float dl = u - (float)(o - SMOOTH_HALO);
+            const float dker = fabsf(dl) < 1.0f ? (dl > 0.0f ? -1.0f : (dl < 0.0f ? 1.0f : 0.0f)) : 0.0f;
+            dtap = dtap + dker * d[o];
+        }
+        const float wb = in_box ? gauss_weight(i) : 0.0f;
+        total = total + wb * dtap * du_dts;
         wsum = wsum + wb;
     }
     return total / (wsum > 0.0f ? wsum : 1.0f);

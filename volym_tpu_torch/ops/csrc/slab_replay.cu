@@ -5,8 +5,8 @@
 // (step body _replay_step_body) on its fused path, the one the training
 // step runs: the stored-density or re-sampled replay with the voxel scatter
 // fused (slab_bwd_kernel.py:792-815), in the base and Blinn-Phong shading
-// modes, nearest or bilinear, f32 or u8 density stream, without camera
-// cotangents.  The plain PyTorch version is
+// modes, nearest or bilinear, f32 or u8 density stream, and with its camera
+// chain (CAM, below).  The plain PyTorch version is
 // volym_tpu_torch/render/slab.py::replay_slabs.
 //
 // Per ray the kernel re-runs the forward's compositing recurrence with the
@@ -53,6 +53,24 @@
 // stencil's transpose and the scatters of voxel_grad.cu (B3, B4) take dd
 // from there.  d_lut stays here.  Steps that composite nothing keep the
 // wrapper's zero-fill.
+//
+// Camera cotangents (CAM; _replay_step_body :817-892): the kernel also
+// accumulates d_feats, the cotangent of the ray's table, in registers over
+// its steps and writes it once (one thread per ray: no atomics):
+//   - F_RS/F_RB/F_CS/F_CB: d_rows * j, d_rows, d_cols * j, d_cols, where
+//     d_rows is dd times the density sample's coordinate derivative
+//     (dsample, slab_common.cuh; unsmoothed only) plus, when shaded, each
+//     gradient-field channel's cotangent times that channel's derivative,
+//     each masked where the raw coordinate is clipped; bilinear only (box
+//     hats have none).  Under smoothing the density's part belongs to the
+//     plain rows and runs in feats_grad.cu (B5) after the transpose;
+//   - F_TS: under smoothing with bilinear sampling, dd times the smoothed
+//     density's tap-offset derivative (smooth_density_dts, from the same
+//     window);
+//   - F_AEXP: d_alpha * log(1 - a) * (alpha - 1);
+//   - F_HX..F_HZ: d(h.n) * n when shaded.
+// The wrapper zero-fills d_feats; its other rows stay 0.  The chain reads
+// the f32 slices, so CAM comes only without U8 and STORED: 8 variants.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,13 +87,15 @@ using namespace volym_slab;
 constexpr float AMBIENT = 0.2f, DIFFUSE = 0.7f, SPECULAR = 0.4f, SHININESS = 24.0f;
 constexpr float INV_SQRT3 = 0.57735026f;
 
-template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH>
+template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH, bool CAM>
 __device__ __forceinline__ void replay_ray(
     const float* __restrict__ f, const void* __restrict__ vol_, const float* __restrict__ grad,
     const float* __restrict__ s_lut, const float* __restrict__ dens, float4 fin, float4 g,
     float* __restrict__ d_vol, float* __restrict__ d_grad, float* __restrict__ s_dlut, float* __restrict__ dd,
-    size_t n_rays, size_t r, int n, int nr, int nc, int ln, int sign, int subtexel,
+    float* __restrict__ df, size_t n_rays, size_t r, int n, int nr, int nc, int ln, int sign, int subtexel,
     float threshold, float early_alpha, float tf_scale) {
+    static_assert(!(CAM && (U8 || STORED)), "camera cotangents read the f32 slices");
+    constexpr bool COORD = CAM && BILINEAR;  // the coordinates' chain (box hats have none)
     using T = typename std::conditional<U8, uint8_t, float>::type;
     const T* __restrict__ vol = static_cast<const T*>(vol_);
     constexpr int DW = SHADING ? 4 : 1;
@@ -98,6 +118,9 @@ __device__ __forceinline__ void replay_ray(
     const float rmax = (float)(nr - 1), cmax = (float)(nc - 1), lmax = (float)(ln - 1);
 
     float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_a = 0.0f;
+    // the camera chain's accumulators: F_RS, F_RB, F_CS, F_CB, F_TS, F_AEXP, F_HX..F_HZ
+    float a_rs = 0.0f, a_rb = 0.0f, a_cs = 0.0f, a_cb = 0.0f, a_ts = 0.0f, a_aexp = 0.0f;
+    float a_hx = 0.0f, a_hy = 0.0f, a_hz = 0.0f;
     SmoothWindow<BILINEAR, T> win;
     for (int j = 0; j < n; ++j) {
         const float jf = (float)j;
@@ -129,6 +152,16 @@ __device__ __forceinline__ void replay_ray(
         const float tf_b = s_lut[i0 * 4 + 2] * ufr + s_lut[i1 * 4 + 2] * fr;
         const float tf_a = s_lut[i0 * 4 + 3] * ufr + s_lut[i1 * 4 + 3] * fr;
         float cr = tf_r, cg = tf_g, cbl = tf_b;
+
+        // the coordinates' chain masks: the raw coordinate strictly inside
+        bool rows_in = false, cols_in = false;
+        if (COORD) {
+            const float rows_raw = rs * jf + rb, cols_raw = cs * jf + cb;
+            rows_in = rows_raw > 0.0f && rows_raw < rmax;
+            cols_in = cols_raw > 0.0f && cols_raw < cmax;
+        }
+        // the gradient field's part of d_rows / d_cols, per channel
+        float g_rows[3] = {0.0f, 0.0f, 0.0f}, g_cols[3] = {0.0f, 0.0f, 0.0f};
 
         // shading state (the forward's expressions, slab_march.cu)
         bool lit_on = false;
@@ -197,6 +230,20 @@ __device__ __forceinline__ void replay_ray(
             const float d_gx = inv_norm * (d_nx - nx * n_dot_dn);
             const float d_gy = inv_norm * (d_ny - ny * n_dot_dn);
             const float d_gz = inv_norm * (d_nz - nz * n_dot_dn);
+            if (CAM) {
+                a_hx = a_hx + d_hdotn * nx;
+                a_hy = a_hy + d_hdotn * ny;
+                a_hz = a_hz + d_hdotn * nz;
+            }
+            if (COORD) {
+                const float d_gc[3] = {d_gx, d_gy, d_gz};
+#pragma unroll
+                for (int ch = 0; ch < 3; ++ch) {
+                    const float2 ds = dsample(grad + ((size_t)ch * n + k) * slice, rows, cols, nr, nc);
+                    g_rows[ch] = rows_in ? d_gc[ch] * ds.x : 0.0f;
+                    g_cols[ch] = cols_in ? d_gc[ch] * ds.y : 0.0f;
+                }
+            }
             if (SMOOTH) {
                 ddj[n_rays] = d_gx;
                 ddj[2 * n_rays] = d_gy;
@@ -220,17 +267,57 @@ __device__ __forceinline__ void replay_ray(
             atomicAdd(s_dlut + i1 * 4 + ch, d_rgba[ch] * fr);
             d_c = d_c + d_rgba[ch] * (s_lut[i1 * 4 + ch] - s_lut[i0 * 4 + ch]);
         }
-        if (fr > 0.0f && c_raw > 0.0f && c_raw < lmax) {
+        const bool tf_in = fr > 0.0f && c_raw > 0.0f && c_raw < lmax;
+        if (tf_in) {
             if (SMOOTH) {
                 ddj[0] = d_c * tf_scale;
             } else {
                 scatter<BILINEAR>(d_vol + k * slice, rows, cols, nr, nc, d_c * tf_scale);
             }
         }
+        if (CAM) {
+            const float ddv = tf_in ? d_c * tf_scale : 0.0f;
+            a_aexp = a_aexp + d_beta * log1ma * (alpha - 1.0f);
+            if (COORD) {
+                float d_rows = 0.0f, d_cols = 0.0f;
+                if (!SMOOTH) {
+                    const float2 ds = dsample(reinterpret_cast<const float*>(vol) + k * slice, rows, cols, nr, nc);
+                    d_rows = rows_in ? ddv * ds.x : 0.0f;
+                    d_cols = cols_in ? ddv * ds.y : 0.0f;
+                }
+                if (SHADING) {
+#pragma unroll
+                    for (int ch = 0; ch < 3; ++ch) {
+                        d_rows = d_rows + g_rows[ch];
+                        d_cols = d_cols + g_cols[ch];
+                    }
+                }
+                a_rs = a_rs + d_rows * jf;
+                a_rb = a_rb + d_rows;
+                a_cs = a_cs + d_cols * jf;
+                a_cb = a_cb + d_cols;
+                if (SMOOTH) a_ts = a_ts + ddv * smooth_density_dts(win.d, j, rs, rb, cs, cb, ts, n, nr, nc);
+            }
+        }
+    }
+    if (CAM) {
+        df[F_AEXP * n_rays] = a_aexp;
+        if (SHADING) {
+            df[F_HX * n_rays] = a_hx;
+            df[F_HY * n_rays] = a_hy;
+            df[F_HZ * n_rays] = a_hz;
+        }
+        if (COORD) {
+            df[F_RS * n_rays] = a_rs;
+            df[F_RB * n_rays] = a_rb;
+            df[F_CS * n_rays] = a_cs;
+            df[F_CB * n_rays] = a_cb;
+            if (SMOOTH) df[F_TS * n_rays] = a_ts;
+        }
     }
 }
 
-template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH>
+template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH, bool CAM>
 __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
     const float* __restrict__ feats,  // (N_FEATURES, H, W)
     const void* __restrict__ vol,     // (n, nr, nc) uint8 if U8 else float; unread when STORED
@@ -243,6 +330,7 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
     float* __restrict__ d_grad,       // (3, n, nr, nc) when SHADING, zero-filled
     float* __restrict__ d_lut,        // (ln, 4), zero-filled
     float* __restrict__ dd,           // (n, SHADING ? 4 : 1, H, W) when SMOOTH, zero-filled
+    float* __restrict__ d_feats,      // (N_FEATURES, H, W) when CAM, zero-filled
     int height, int width, int n, int nr, int nc, int ln, int sign, int subtexel,
     float threshold, float early_alpha, float tf_scale) {
     extern __shared__ float smem[];
@@ -263,9 +351,9 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
         const size_t r = (size_t)y * width + x;
         const float4 fo = reinterpret_cast<const float4*>(fin)[r];
         const float4 go = reinterpret_cast<const float4*>(gimg)[r];
-        replay_ray<BILINEAR, U8, SHADING, STORED, SMOOTH>(
-            feats + r, vol, grad, s_lut, dens, fo, go, d_vol, d_grad, s_dlut, dd, n_rays, r, n, nr, nc,
-            ln, sign, subtexel, threshold, early_alpha, tf_scale);
+        replay_ray<BILINEAR, U8, SHADING, STORED, SMOOTH, CAM>(
+            feats + r, vol, grad, s_lut, dens, fo, go, d_vol, d_grad, s_dlut, dd, CAM ? d_feats + r : nullptr, n_rays,
+            r, n, nr, nc, ln, sign, subtexel, threshold, early_alpha, tf_scale);
     }
     __syncthreads();
     for (int i = tid; i < ln * 4; i += nthreads) {
@@ -274,36 +362,38 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
     }
 }
 
-template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH>
+template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH, bool CAM = false>
 void launch(const float* feats, const void* vol, const float* grad, const float* lut,
             const float* dens, const float* fin, const float* gimg, float* d_vol, float* d_grad,
-            float* d_lut, float* dd, int height, int width, int n, int nr, int nc, int ln, int sign,
-            int subtexel, float threshold, float early_alpha, float tf_scale, cudaStream_t stream) {
+            float* d_lut, float* dd, float* d_feats, int height, int width, int n, int nr, int nc, int ln,
+            int sign, int subtexel, float threshold, float early_alpha, float tf_scale, cudaStream_t stream) {
     const dim3 block(TILE_X, TILE_Y);
     const dim3 grid((width + TILE_X - 1) / TILE_X, (height + TILE_Y - 1) / TILE_Y);
     const size_t smem = (size_t)ln * 8 * sizeof(float);
-    slab_replay_kernel<BILINEAR, U8, SHADING, STORED, SMOOTH><<<grid, block, smem, stream>>>(
-        feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, dd, height, width, n, nr, nc, ln,
-        sign, subtexel, threshold, early_alpha, tf_scale);
+    slab_replay_kernel<BILINEAR, U8, SHADING, STORED, SMOOTH, CAM><<<grid, block, smem, stream>>>(
+        feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, dd, d_feats, height, width, n, nr, nc,
+        ln, sign, subtexel, threshold, early_alpha, tf_scale);
 }
 
 }  // namespace
 
 // C entry for ctypes: launches on `stream` and returns cudaGetLastError().
 // `grad` may be NULL when stored or unshaded, `dens` unless stored,
-// `d_vol` and `d_grad` when smoothing (and `d_grad` unless shaded), and
-// `dd` unless smoothing.
+// `d_vol` and `d_grad` when smoothing (and `d_grad` unless shaded), `dd`
+// unless smoothing, and `d_feats` unless `camera` (which takes neither
+// `u8` nor `stored`).
 extern "C" int slab_replay_launch(const float* feats, const void* vol, const float* grad,
                                   const float* lut, const float* dens, const float* fin,
                                   const float* gimg, float* d_vol, float* d_grad, float* d_lut,
-                                  float* dd, int height, int width, int n, int nr, int nc, int ln,
-                                  int sign, int subtexel, int bilinear, int u8, int shading,
-                                  int stored, int smooth, float threshold, float early_alpha,
+                                  float* dd, float* d_feats, int height, int width, int n, int nr, int nc,
+                                  int ln, int sign, int subtexel, int bilinear, int u8, int shading,
+                                  int stored, int smooth, int camera, float threshold, float early_alpha,
                                   float tf_scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VOLYM_LAUNCH(B, U, S, D, G)                                                               \
-    launch<B, U, S, D, G>(feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, dd, height, \
-                          width, n, nr, nc, ln, sign, subtexel, threshold, early_alpha, tf_scale, s)
+#define VOLYM_LAUNCH_C(B, U, S, D, G, C)                                                               \
+    launch<B, U, S, D, G, C>(feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, dd, d_feats, \
+                             height, width, n, nr, nc, ln, sign, subtexel, threshold, early_alpha, tf_scale, s)
+#define VOLYM_LAUNCH(B, U, S, D, G) VOLYM_LAUNCH_C(B, U, S, D, G, false)
 #define VOLYM_LAUNCH_G(B, U, S, D)        \
     if (smooth) {                         \
         VOLYM_LAUNCH(B, U, S, D, true);   \
@@ -315,6 +405,20 @@ extern "C" int slab_replay_launch(const float* feats, const void* vol, const flo
         VOLYM_LAUNCH_G(B, U, S, true);    \
     } else {                              \
         VOLYM_LAUNCH_G(B, U, S, false);   \
+    }
+    if (camera) {
+        if (u8 || stored) return (int)cudaErrorInvalidValue;
+        switch ((bilinear ? 4 : 0) | (shading ? 2 : 0) | (smooth ? 1 : 0)) {
+            case 0: VOLYM_LAUNCH_C(false, false, false, false, false, true); break;
+            case 1: VOLYM_LAUNCH_C(false, false, false, false, true, true); break;
+            case 2: VOLYM_LAUNCH_C(false, false, true, false, false, true); break;
+            case 3: VOLYM_LAUNCH_C(false, false, true, false, true, true); break;
+            case 4: VOLYM_LAUNCH_C(true, false, false, false, false, true); break;
+            case 5: VOLYM_LAUNCH_C(true, false, false, false, true, true); break;
+            case 6: VOLYM_LAUNCH_C(true, false, true, false, false, true); break;
+            default: VOLYM_LAUNCH_C(true, false, true, false, true, true); break;
+        }
+        return (int)cudaGetLastError();
     }
     const int variant = (bilinear ? 4 : 0) | (u8 ? 2 : 0) | (shading ? 1 : 0);
     switch (variant) {
@@ -330,5 +434,6 @@ extern "C" int slab_replay_launch(const float* feats, const void* vol, const flo
 #undef VOLYM_LAUNCH_D
 #undef VOLYM_LAUNCH_G
 #undef VOLYM_LAUNCH
+#undef VOLYM_LAUNCH_C
     return (int)cudaGetLastError();
 }

@@ -4,7 +4,8 @@ the production render and the differentiable render.
 Counterpart of :mod:`volym_tpu.ops.slab_kernel` (base, shading and
 Gaussian smoothing modes, forward with or without the importance
 look-ahead gate of :mod:`volym_tpu_torch.ops.lookahead`, and, through
-:class:`DiffMarch`, the backward without camera gradients or look-ahead).
+:class:`DiffMarch`, the backward with camera gradients, without
+look-ahead).
 The TPU kernel ``_march_kernel`` samples with hat-matrix products
 on the MXU over a grid of (ray chunk, slab block) pairs; the CUDA kernel
 (``csrc/slab_march.cu``) marches one ray per thread with direct texel
@@ -26,7 +27,7 @@ import ctypes
 import torch
 
 from volym_tpu_torch.config import Interpolation, RenderParams
-from volym_tpu_torch.ops import lookahead, slab_replay, voxel_grad
+from volym_tpu_torch.ops import feats_grad, lookahead, slab_replay, voxel_grad
 from volym_tpu_torch.render import rays as rays_mod
 from volym_tpu_torch.render import slab as slab_mod
 from volym_tpu_torch.render.golden import CONE_SAMPLES, cone_directions
@@ -46,7 +47,13 @@ MAX_LUT_ENTRIES = 48 * 1024 // 16
 def features_from_rays(origin, dirs, entry, exit_, n_slabs: int, major: int, sign: int, n_plane=None) -> torch.Tensor:
     """The (N_FEATURES, R) per-ray table from a ray bundle.  The affine
     coefficients come from :func:`slab.ray_affine`, the one definition the
-    plain march and the kernel both read."""
+    plain march and the kernel both read.  Differentiable in ``origin`` and
+    ``dirs`` (the camera gradients' last leg), except the rows that enter
+    only masks and the look-ahead gate, whose derivative is zero almost
+    everywhere: ``F_ENTRY``/``F_EXIT`` (the ray-box division's backward
+    would turn their zero cotangent into 0 * inf, a NaN, on a ray with an
+    exactly zero direction component) and ``F_CD``/``F_C2`` (whose
+    correctly rounded dot has no derivative)."""
     d_m = dirs[:, major]
     rs, rb, cs, cb, ts, tb = slab_mod.ray_affine(origin, dirs, n_slabs, major, sign, n_plane=n_plane)
     aexp = torch.full_like(d_m, 1.0 / n_slabs) / torch.clamp(torch.abs(d_m), min=1e-12) * 100.0
@@ -57,12 +64,13 @@ def features_from_rays(origin, dirs, entry, exit_, n_slabs: int, major: int, sig
     half = half / rays_mod.norm3(half)
     # cam.dir: JAX's ``dirs @ origin`` on the CPU is a chain of fused
     # multiply-adds in component order, written out here
-    cd = rays_mod.fma_rn(dirs[:, 2], origin[2], rays_mod.fma_rn(dirs[:, 1], origin[1], dirs[:, 0] * origin[0]))
-    c2 = (origin[0] * origin[0] + origin[1] * origin[1]) + origin[2] * origin[2]
+    o, dr = origin.detach(), dirs.detach()
+    cd = rays_mod.fma_rn(dr[:, 2], o[2], rays_mod.fma_rn(dr[:, 1], o[1], dr[:, 0] * o[0]))
+    c2 = (o[0] * o[0] + o[1] * o[1]) + o[2] * o[2]
     feats = torch.empty((N_FEATURES, dirs.shape[0]), dtype=torch.float32, device=dirs.device)
     for i, v in (
         (F_RS, rs), (F_RB, rb), (F_CS, cs), (F_CB, cb), (F_TS, ts), (F_TB, tb),
-        (F_ENTRY, entry), (F_EXIT, exit_), (F_AEXP, aexp), (F_SIGNOK, signok),
+        (F_ENTRY, entry.detach()), (F_EXIT, exit_.detach()), (F_AEXP, aexp), (F_SIGNOK, signok),
         (F_HX, half[:, 0]), (F_HY, half[:, 1]), (F_HZ, half[:, 2]), (F_CD, cd), (F_C2, c2),
     ):
         feats[i] = v
@@ -84,12 +92,17 @@ def cone_features_from_rays(origin, dirs, n_slabs: int, major: int, sign: int, n
 
 
 def u8_active(params: RenderParams, planes: int, n: int) -> bool:
-    """Whether the march runs the u8 scaled domain: asked for, on the
+    """Whether the march runs the u8 scaled domain: asked for, without
+    camera cotangents (their coordinate chain reads the f32 slices), on the
     native plane count (resampled planes are not u8-representable), and
     with snapped or nearest sampling (the TPU kernel's exactness
-    condition, kept so both packages pick the same domain)."""
+    condition, kept so both packages pick the same domain,
+    ``slab_kernel._u8_active``).  The forward render clears
+    ``camera_grads`` first (:func:`prepare`), as the JAX package's
+    ``render`` does, so a frame's stream never depends on it."""
     return bool(
         params.u8_volume
+        and not params.camera_grads
         and planes == n
         and (params.subtexel_bits > 0 or params.interpolation != Interpolation.TRILINEAR)
     )
@@ -256,10 +269,12 @@ def lookahead_inputs(scene, camera_matrices, params: RenderParams, height: int, 
 
 
 def prepare(scene, camera_matrices, params: RenderParams, height: int, width: int):
-    """The march's inputs for one frame: ``(feats, vol_perm, lut, sign,
-    grad_perm, u8)`` on the scene's device."""
+    """The forward march's inputs for one frame: ``(feats, vol_perm, lut,
+    sign, grad_perm, u8)`` on the scene's device.  Forward only: camera
+    cotangents are moot, so ``camera_grads`` does not veto the u8 stream
+    (``slab_kernel.render`` clears it the same way)."""
     check_supported(params)
-    major, sign, planes, u8 = _layout(scene, camera_matrices, params)
+    major, sign, planes, u8 = _layout(scene, camera_matrices, params.replace(camera_grads=False))
     if u8:
         if scene.volume_u8 is None:
             raise ValueError("u8_volume needs a scene with a uint8 volume (Scene.from_uint8)")
@@ -290,19 +305,13 @@ def render(
 
 def check_differentiable(params: RenderParams) -> None:
     """Raise for the modes the differentiable render does not implement
-    yet: those of :func:`check_supported`, camera gradients and
-    importance look-ahead."""
-    if params.camera_grads:
-        raise NotImplementedError(
-            "not ported to volym_tpu_torch yet: camera gradients (camera_grads=True; the next slice of the "
-            "port, with the smoothing camera chain B5; pass camera_grads=False for scene-only gradients)"
-        )
+    yet: those of :func:`check_supported` and importance look-ahead."""
     check_supported(params)
     if lookahead_active(params):
         raise NotImplementedError(
             "not ported to volym_tpu_torch yet: importance look-ahead in the differentiable render "
-            "(its backward, the replay gated by the same look-ahead gate, comes after the next slice of the "
-            "port, camera gradients)"
+            "(its backward, the replay gated by the same look-ahead gate, is queued after the next slice of the "
+            "port, the kernel redesigns)"
         )
 
 
@@ -322,11 +331,23 @@ def fold_smoothed(feats, dd, vol_shape, params: RenderParams):
     return slab_mod.smooth_dd_transpose(feats, dd, nr, nc, bilinear)
 
 
-def smooth_backward(feats, dd, vol_shape, sign, params: RenderParams, scatter_fn=voxel_grad.scatter):
+def smooth_backward(
+    feats, dd, vol, sign, params: RenderParams, scatter_fn=voxel_grad.scatter, feats_grad_fn=feats_grad.feats_grad
+):
     """The backward after the replay under Gaussian smoothing: ``dd`` ->
-    ``(d_vol, d_grad)``, :func:`fold_smoothed` and then ``scatter_fn``
-    (default :func:`voxel_grad.scatter`: B3, or B4 when shaded, on a GPU)."""
-    return scatter_fn(feats, fold_smoothed(feats, dd, vol_shape, params), vol_shape, sign, params)
+    ``(d_vol, d_grad, d_feats)``, :func:`fold_smoothed` and then
+    ``scatter_fn`` (default :func:`voxel_grad.scatter`: B3, or B4 when
+    shaded, on a GPU).  With camera gradients and trilinear sampling,
+    ``feats_grad_fn`` (default :func:`feats_grad.feats_grad`: B5 on a GPU)
+    adds the plain rows' camera chain from the folded density channel and
+    ``vol``, the f32 volume as marched; otherwise ``d_feats`` is None (box
+    hats have no coordinate derivative, ``slab_bwd_kernel.py:1789``)."""
+    folded = fold_smoothed(feats, dd, vol.shape, params)
+    d_vol, d_grad = scatter_fn(feats, folded, vol.shape, sign, params)
+    d_feats = None
+    if params.camera_grads and params.interpolation == Interpolation.TRILINEAR:
+        d_feats = feats_grad_fn(feats, vol, folded[:, 0] if folded.dim() == 4 else folded, sign, params)
+    return d_vol, d_grad, d_feats
 
 
 class DiffMarch(torch.autograd.Function):
@@ -336,19 +357,22 @@ class DiffMarch(torch.autograd.Function):
     Forward: the march (B1), which also stores the density residual when
     :func:`slab_replay.use_stored_density` holds.  Backward: the replay
     with its fused voxel scatter (B2), into d ``vol_perm``, d ``lut`` and,
-    shaded, d ``grad_perm``; ``feats`` gets none (no camera gradients).
-    Under Gaussian smoothing the replay writes its per-step cotangents
-    instead, and :func:`smooth_backward` folds and scatters them (the
-    stencil's transpose, then B3 or B4).  In the u8 domain the march reads
-    ``round(vol_perm * 255)`` as uint8 and the d/d(scaled density) is
-    multiplied by 255.  The march, the replay and the scatter are
-    ``march_fn``, ``replay_fn`` and ``scatter_fn`` (:func:`march`,
-    :func:`slab_replay.replay` and :func:`voxel_grad.scatter` dispatch on
-    the tensors' device).
+    shaded, d ``grad_perm``, and with ``camera_grads`` into d ``feats``
+    (B2's camera chain).  Under Gaussian smoothing the replay writes its
+    per-step cotangents instead, and :func:`smooth_backward` folds and
+    scatters them (the stencil's transpose, then B3 or B4) and, for camera
+    gradients with trilinear sampling, adds the plain rows' chain (B5).  In
+    the u8 domain the march reads ``round(vol_perm * 255)`` as uint8 and
+    the d/d(scaled density) is multiplied by 255.  The march, the replay,
+    the scatter and the plain rows' chain are ``march_fn``, ``replay_fn``,
+    ``scatter_fn`` and ``feats_grad_fn`` (:func:`march`,
+    :func:`slab_replay.replay`, :func:`voxel_grad.scatter` and
+    :func:`feats_grad.feats_grad` dispatch on the tensors' device).
     """
 
     @staticmethod
-    def forward(ctx, vol_perm, lut, grad_perm, feats, sign, params, u8, march_fn, replay_fn, scatter_fn):
+    def forward(ctx, vol_perm, lut, grad_perm, feats, sign, params, u8, march_fn, replay_fn, scatter_fn,
+                feats_grad_fn):
         if u8:
             vol = torch.round(vol_perm * 255.0).clamp_(0.0, 255.0).to(torch.uint8).contiguous()
         else:
@@ -358,27 +382,35 @@ class DiffMarch(torch.autograd.Function):
         res = march_fn(feats, vol, lut, sign, params, grad_perm, u8, emit_density=stored)
         out, dens = res if stored else (res, None)
         ctx.save_for_backward(feats, vol, lut, grad_perm, out, dens)
-        ctx.sign, ctx.params, ctx.u8, ctx.replay_fn, ctx.scatter_fn = sign, params, u8, replay_fn, scatter_fn
+        ctx.sign, ctx.params, ctx.u8 = sign, params, u8
+        ctx.replay_fn, ctx.scatter_fn, ctx.feats_grad_fn = replay_fn, scatter_fn, feats_grad_fn
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_img):
         feats, vol, lut, grad_perm, out, dens = ctx.saved_tensors
-        res = ctx.replay_fn(feats, vol, lut, ctx.sign, ctx.params, out, g_img.contiguous(), grad_perm, ctx.u8, dens)
-        if ctx.params.use_gaussian_smoothing:
+        params = ctx.params
+        res = ctx.replay_fn(feats, vol, lut, ctx.sign, params, out, g_img.contiguous(), grad_perm, ctx.u8, dens)
+        d_feats = None
+        if params.camera_grads:
+            *res, d_feats = res
+        if params.use_gaussian_smoothing:
             dd, d_lut = res
-            d_vol, d_grad = smooth_backward(feats, dd, vol.shape, ctx.sign, ctx.params, ctx.scatter_fn)
+            d_vol, d_grad, d_plain = smooth_backward(feats, dd, vol, ctx.sign, params, ctx.scatter_fn,
+                                                     ctx.feats_grad_fn)
+            if d_plain is not None:
+                d_feats = d_feats + d_plain
         else:
             d_vol, d_grad, d_lut = res
         if ctx.u8:
             d_vol = d_vol * 255.0  # d/d(scaled density) -> d/d(v/255 volume)
-        return d_vol, d_lut, d_grad, None, None, None, None, None, None, None
+        return d_vol, d_lut, d_grad, d_feats, None, None, None, None, None, None, None
 
 
 def render_diff(
     scene, camera_matrices, params: RenderParams, height: int, width: int, march_fn=march,
-    replay_fn=slab_replay.replay, scatter_fn=voxel_grad.scatter,
+    replay_fn=slab_replay.replay, scatter_fn=voxel_grad.scatter, feats_grad_fn=feats_grad.feats_grad,
 ):
     """Differentiable slab render -> (H, W, 4) on the scene's device, the
     counterpart of ``slab_kernel.render_diff``.  Gradients reach
@@ -386,21 +418,30 @@ def render_diff(
     permute, the plane resample and the gradient field stay in the graph,
     and :class:`DiffMarch` is the march and its replay, through
     ``march_fn``, ``replay_fn`` and, under Gaussian smoothing,
-    ``scatter_fn`` (default: the CUDA kernels on a GPU).
+    ``scatter_fn`` and ``feats_grad_fn`` (default: the CUDA kernels on a
+    GPU).
+
+    With ``params.camera_grads`` (the default) the per-ray table is built
+    with autograd on, so the replay's d ``feats`` reaches
+    ``camera_matrices.inverse_view_proj`` and ``camera_matrices.position``
+    (set ``requires_grad`` on them), as ``jax.grad`` does through
+    ``_pack_features``; ``view`` and ``proj`` get none (the march axis is
+    chosen on the host).  Camera cotangents march the f32 volume and
+    re-sample it in the replay (no u8 stream, no stored residual).
 
     In the u8 domain (:func:`u8_active`) the uint8 grid is derived from the
     differentiable volume on every call, ``round(volume * 255)``, so a
     volume that is not u8-representable is quantised silently, as in the
     TPU package (and values outside [0, 1] are clamped to it);
-    ``scene.volume_u8`` is not read.  Camera gradients, coloring,
-    look-ahead and first-hit raise ``NotImplementedError``.
+    ``scene.volume_u8`` is not read.  Coloring, look-ahead and first-hit
+    raise ``NotImplementedError``.
     """
     check_differentiable(params)
     major, sign, planes, u8 = _layout(scene, camera_matrices, params)
     vol_perm = slab_mod.slab_resample(slab_mod.permute_volume(scene.volume, major), planes)
     grad_perm = _gradient_perm(scene.volume, major, planes) if params.use_shading else None
-    with torch.no_grad():
+    with torch.set_grad_enabled(params.camera_grads and torch.is_grad_enabled()):
         feats = _features(camera_matrices, scene.device, height, width, planes, major, sign, vol_perm.shape[1])
     return DiffMarch.apply(
-        vol_perm, scene.tf_lut, grad_perm, feats, sign, params, u8, march_fn, replay_fn, scatter_fn
+        vol_perm, scene.tf_lut, grad_perm, feats, sign, params, u8, march_fn, replay_fn, scatter_fn, feats_grad_fn
     )

@@ -4,7 +4,8 @@ wrapper, the device dispatch and the stored-density gate.
 Counterpart of :mod:`volym_tpu.ops.slab_bwd_kernel` on the path the
 training step runs: the replay ``_replay_kernel`` with its fused voxel
 scatter, from the stored density or re-sampled, base and shading modes,
-without camera cotangents.  The TPU backward splits the replay from the
+and with its camera chain (d_feats) on the re-sampled f32 stream.  The
+TPU backward splits the replay from the
 scatter (passes 1 and 2) when its VMEM cannot hold the fused layout and
 under Gaussian smoothing; one thread per ray scatters with atomics and
 needs no second pass for VMEM's sake, but under smoothing a step's
@@ -61,7 +62,7 @@ def _library():
         p = ctypes.c_void_p
         i = ctypes.c_int
         f = ctypes.c_float
-        fn.argtypes = [p] * 11 + [i] * 13 + [f, f, f, p]
+        fn.argtypes = [p] * 12 + [i] * 14 + [f, f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -80,15 +81,20 @@ def replay_cuda(
 ):
     """Launch the CUDA replay kernel; same arguments and result as
     :func:`slab.replay_slabs` (``(dd, d_lut)`` under Gaussian smoothing,
-    ``dd`` zero-filled here).  The summation order of its atomics, and so
-    the last bits of ``d_vol``, ``d_grad`` and ``d_lut``, change from run
-    to run."""
+    ``dd`` zero-filled here; with ``params.camera_grads`` a last
+    ``d_feats``, zero-filled here, which the kernel's camera mode
+    accumulates one ray a thread, without atomics).  The summation order
+    of its atomics, and so the last bits of ``d_vol``, ``d_grad`` and
+    ``d_lut``, change from run to run."""
     global LAUNCHES
     dev = feats.device
     if dev.type != "cuda":
         raise ValueError(f"replay_cuda needs CUDA tensors, got {dev}")
     shading = params.use_shading
     stored = dens is not None
+    camera = params.camera_grads
+    if camera and (stored or u8):
+        raise ValueError("camera cotangents need the re-sampled replay of the f32 volume (no residual, no u8)")
     tensors = [("feats", feats), ("vol_perm", vol_perm), ("lut", lut), ("out", out), ("g_img", g_img)]
     if stored:
         tensors.append(("dens", dens))
@@ -131,6 +137,7 @@ def replay_cuda(
         d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dev)
         d_grad = torch.zeros((3, n, nr, nc), dtype=torch.float32, device=dev) if shading else None
     d_lut = torch.zeros((ln, 4), dtype=torch.float32, device=dev)
+    d_feats = torch.zeros_like(feats) if camera else None
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -140,16 +147,17 @@ def replay_cuda(
         rc = fn(
             feats.data_ptr(), vol_perm.data_ptr(), ptr(grad_perm) if (shading and not stored) else None,
             lut.data_ptr(), ptr(dens), out.data_ptr(), g_img.data_ptr(),
-            ptr(d_vol), ptr(d_grad), d_lut.data_ptr(), ptr(dd),
+            ptr(d_vol), ptr(d_grad), d_lut.data_ptr(), ptr(dd), ptr(d_feats),
             height, width, n, nr, nc, ln, int(sign), int(params.subtexel_bits),
             int(params.interpolation == Interpolation.TRILINEAR), int(u8), int(shading), int(stored), int(smooth),
-            threshold, early_alpha, tf_scale,
+            int(camera), threshold, early_alpha, tf_scale,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"slab_replay kernel launch failed with CUDA error {rc}")
     LAUNCHES += 1
-    return (dd, d_lut) if smooth else (d_vol, d_grad, d_lut)
+    res = (dd, d_lut) if smooth else (d_vol, d_grad, d_lut)
+    return (*res, d_feats) if camera else res
 
 
 def replay(feats, vol_perm, lut, sign, params, out, g_img, grad_perm=None, u8=False, dens=None):

@@ -9,7 +9,8 @@ and move that pixel by O(one step).  The rule is the JAX package's own
 may differ by more than 1e-3 of the scale, and every other entry agrees to
 ``bulk`` of the scale.  A TF LUT gradient takes the rule in two groups
 (:func:`check_lut_grad`), since its opaque end dwarfs the other entries.
-A look-ahead gate is compared bit by bit (:func:`gate_diff`).
+A look-ahead gate is compared bit by bit (:func:`gate_diff`).  Camera
+gradients take the rule leaf by leaf (:func:`check_camera_grad`).
 """
 
 from __future__ import annotations
@@ -89,6 +90,24 @@ def check_lut_grad(a, b, lut, name: str, bulk: float = 2e-4, edge_frac: float = 
         i = int(np.argmax(rel))
         raise AssertionError(f"{name}: opaque-end entry off by {err[i]:.3e} of {a[opaque][i]:.3e}")
     return r, float(rel.max()) if rel.size else 0.0
+
+
+def check_camera_grad(want, got, name: str, bulk: float = 2e-4, edge_frac: float = 2e-3) -> dict[str, Agreement]:
+    """Raise ``AssertionError`` unless two camera gradients agree: mappings
+    from each camera leaf's name (``inverse_view_proj``, ``position``, ...)
+    to its gradient, held to :func:`check_close` leaf by leaf, each on its
+    own scale.  A leaf that gets no gradient (``None``, as ``view`` and
+    ``proj`` in the port, whose march axis is chosen on the host) counts as
+    zeros, which JAX gives there.  -> the agreement of each leaf."""
+    out = {}
+    for leaf in sorted(set(want) | set(got)):
+        a, b = want.get(leaf), got.get(leaf)
+        if a is None and b is None:
+            continue
+        a = np.zeros(_numpy(b).shape) if a is None else _numpy(a)
+        b = np.zeros(a.shape) if b is None else _numpy(b)
+        out[leaf] = check_close(a, b, f"{name} d {leaf}", bulk, edge_frac)
+    return out
 
 
 @dataclass(frozen=True)

@@ -2,7 +2,7 @@
 
 Counterpart of :mod:`volym_tpu.render.slab` for the base, shading and
 Gaussian smoothing modes, forward (with importance look-ahead) and backward
-(without camera gradients or look-ahead).  The march steps
+(with camera gradients, without look-ahead).  The march steps
 along the camera's dominant axis one voxel plane at a time, so every
 sample lies on a plane and trilinear filtering is bilinear inside one
 slice (see the JAX module for the derivation).
@@ -16,8 +16,10 @@ smoothing stencil (:func:`smoothed_densities`), and emits the
 stored-density residual.  :func:`replay_slabs` is the plain version of the
 CUDA replay backward (:mod:`volym_tpu_torch.ops.slab_replay`),
 :func:`voxel_grad` that of the CUDA voxel-gradient scatters
-(:mod:`volym_tpu_torch.ops.voxel_grad`), and :func:`lookahead_gate` that
-of the CUDA look-ahead gate (:mod:`volym_tpu_torch.ops.lookahead`).
+(:mod:`volym_tpu_torch.ops.voxel_grad`), :func:`feats_grad` that of the
+CUDA camera chain of the plain rows (:mod:`volym_tpu_torch.ops.feats_grad`),
+and :func:`lookahead_gate` that of the CUDA look-ahead gate
+(:mod:`volym_tpu_torch.ops.lookahead`).
 :func:`smooth_dd_transpose`, the smoothing stencil's transpose, has no
 kernel: it runs as written on every device.
 
@@ -287,6 +289,57 @@ def _nearest_slice(sl: torch.Tensor, rows_c: torch.Tensor, cols_c: torch.Tensor)
     return sl.reshape(-1)[_nearest_tap(rows_c, cols_c, nr, nc)].float()
 
 
+def _dsample(sl: torch.Tensor, rows_c: torch.Tensor, cols_c: torch.Tensor):
+    """(d sample / d rows, d sample / d cols) of a bilinear sample of the
+    float32 (nr, nc) slice ``sl`` at snapped texel coordinates: the hats'
+    derivative contracted with the other axis' hats (``_dhat`` and
+    ``slab_bwd_kernel.py:826-842``; ``dsample`` in csrc/slab_common.cuh).
+
+    The derivative is half-open: at a coordinate exactly on texel i it is
+    the right-sided difference ``v[i+1] - v[i]``.  Texel ``nr`` (``nc``) is
+    absent from the TPU's hats, so it counts as 0 and not as a clamped copy
+    of texel ``nr - 1``: a coordinate snapped onto ``nr - 1`` has
+    derivative ``-v[nr-1]``.  The caller masks the chain where the raw
+    coordinate is clipped."""
+    nr, nc = sl.shape
+    flat = torch.nn.functional.pad(sl, (0, 1, 0, 1)).reshape(-1)  # the absent texels, 0
+    r0f = torch.floor(rows_c)
+    c0f = torch.floor(cols_c)
+    tr = rows_c - r0f
+    tc = cols_c - c0f
+    i00 = r0f.long() * (nc + 1) + c0f.long()
+    v00, v01 = flat[i00], flat[i00 + 1]
+    v10, v11 = flat[i00 + (nc + 1)], flat[i00 + (nc + 2)]
+    ur, uc = 1.0 - tr, 1.0 - tc
+    return (v10 - v00) * uc + (v11 - v01) * tc, (v01 * ur + v11 * tr) - (v00 * ur + v10 * tr)
+
+
+def _coord_masks(f: torch.Tensor, jf, nr: int, nc: int):
+    """Where the camera chain of a sample's coordinates runs: the raw,
+    unclipped, unsnapped coordinate strictly inside the texel range
+    (``rows_in``/``cols_in``, ``slab_bwd_kernel.py:827-830``)."""
+    rows_raw = f[F_RS] * jf + f[F_RB]
+    cols_raw = f[F_CS] * jf + f[F_CB]
+    return (rows_raw > 0.0) & (rows_raw < nr - 1.0), (cols_raw > 0.0) & (cols_raw < nc - 1.0)
+
+
+def _coord_chain(sl: torch.Tensor, rows_c, cols_c, masks, v: torch.Tensor):
+    """``v`` times the coordinate derivative of the sample of ``sl``
+    (:func:`_dsample`), zero where :func:`_coord_masks` clips it ->
+    ``(d_rows, d_cols)``."""
+    ddr, ddc = _dsample(sl, rows_c, cols_c)
+    return torch.where(masks[0], v * ddr, 0.0), torch.where(masks[1], v * ddc, 0.0)
+
+
+def _add_coord_chain(d_feats: torch.Tensor, j: int, d_rows: torch.Tensor, d_cols: torch.Tensor) -> None:
+    """Add march step j's coordinate cotangents into the affine rows of the
+    (N_FEATURES, R) table cotangent (rows = F_RS * j + F_RB, cols alike)."""
+    d_feats[F_RS] += d_rows * float(j)
+    d_feats[F_RB] += d_rows
+    d_feats[F_CS] += d_cols * float(j)
+    d_feats[F_CB] += d_cols
+
+
 def _scatter_sample(dst: torch.Tensor, rows_c, cols_c, value: torch.Tensor, bilinear: bool) -> None:
     """Transpose of one slice sample: add ``value`` (R,) into the (nr, nc)
     slice ``dst`` with the sample's own bilinear or box weights (the fused
@@ -373,29 +426,73 @@ def smooth_row(f: torch.Tensor, jf, rows, n: int, nr: int, nc: int, bilinear: bo
     return total / torch.where(wsum > 0.0, wsum, 1.0)
 
 
-def smoothed_densities(feats: torch.Tensor, vol_perm: torch.Tensor, sign: int, params: RenderParams) -> torch.Tensor:
-    """(N, H, W) Gaussian-smoothed density at every march step j, the
-    counterpart of the jnp spec ``volym_tpu.render.slab.smoothed_densities``
-    (:func:`smooth_row` over the plain rows).  The plain row of step j is
-    the sample at the step's own snapped coordinates, whatever the ray's
-    t-window; rows beyond the sweep clamp to its end rows.  ``vol_perm``
-    as in :func:`march_slabs` (uint8 in the u8 domain: the stencil is linear
-    and normalised, so the smoothed scaled density is 255x the smoothed
-    density)."""
-    _, height, width = feats.shape
-    f = feats.reshape(N_FEATURES, -1)
+def smooth_row_dts(f: torch.Tensor, jf, rows, n: int, nr: int, nc: int, bilinear: bool) -> torch.Tensor:
+    """d(smoothed density)/d(F_TS) (M, R) of the march steps ``jf``, with
+    :func:`smooth_row`'s arguments: the counterpart of
+    ``slab_bwd_kernel._smooth_row_dts`` (``:118-166``) in its operation
+    order.  The in-box masks and ``wsum`` are indicators (zero derivative
+    almost everywhere), so only the stencil's hats ``ker(u - off)`` chain,
+    with ``du/dts = -delta / ts^2``, normalised by ``wsum``.  Box (nearest)
+    hats have no derivative: zeros."""
+    if not bilinear:
+        return torch.zeros_like(rows[0])
+    ts_raw = f[F_TS]
+    ts = torch.where(ts_raw == 0.0, 1.0, ts_raw)
+    rows_raw = f[F_RS] * jf + f[F_RB]
+    cols_raw = f[F_CS] * jf + f[F_CB]
+    total = torch.zeros_like(rows_raw)
+    wsum = torch.zeros_like(rows_raw)
+    for delta, w in GAUSS_TAPS:
+        u = torch.full_like(ts, delta) / ts
+        rt = rows_raw + u * f[F_RS]
+        ct = cols_raw + u * f[F_CS]
+        st = jf + u
+        in_box = (
+            (rt >= -0.5) & (rt <= nr - 0.5) & (ct >= -0.5) & (ct <= nc - 0.5) & (st >= -0.5) & (st <= n - 0.5)
+        )
+        del rt, ct, st
+        du_dts = torch.full_like(ts, -delta) / (ts_raw * ts_raw)
+        dtap = torch.zeros_like(rows_raw)
+        for off in range(-SMOOTH_HALO, SMOOTH_HALO + 1):
+            d = u - off
+            dker = torch.where(torch.abs(d) < 1.0, -torch.sign(d), 0.0)
+            dtap = dtap + dker * rows[off + SMOOTH_HALO]
+        wb = torch.where(in_box, w, 0.0)
+        total = total + wb * dtap * du_dts
+        wsum = wsum + wb
+    return total / torch.where(wsum > 0.0, wsum, 1.0)
+
+
+def _stencil_rows(f: torch.Tensor, vol_perm: torch.Tensor, sign: int, params: RenderParams):
+    """The 7 plain density rows (N, R) of the stencil at every march step:
+    row ``o + 3`` holds the plain row of step clamp(j + o) to [0, N-1].  The
+    plain row of step j is the sample at the step's own snapped
+    coordinates, whatever the ray's t-window."""
     n, nr, nc = vol_perm.shape
     check_smooth_planes(n)
-    bilinear = params.interpolation == Interpolation.TRILINEAR
-    sample2d = _bilinear_slice if bilinear else _nearest_slice
+    sample2d = _bilinear_slice if params.interpolation == Interpolation.TRILINEAR else _nearest_slice
     plain = torch.stack([
         sample2d(vol_perm[k], rows_c, cols_c)
         for k, _, rows_c, cols_c in (_step_coords(f, j, n, nr, nc, sign, params.subtexel_bits) for j in range(n))
     ])
     idx = torch.arange(n, device=plain.device)
-    rows = [plain[torch.clamp(idx + o, 0, n - 1)] for o in range(-SMOOTH_HALO, SMOOTH_HALO + 1)]
-    del plain
-    out = smooth_row(f, idx.to(torch.float32)[:, None], rows, n, nr, nc, bilinear)
+    return [plain[torch.clamp(idx + o, 0, n - 1)] for o in range(-SMOOTH_HALO, SMOOTH_HALO + 1)]
+
+
+def smoothed_densities(feats: torch.Tensor, vol_perm: torch.Tensor, sign: int, params: RenderParams) -> torch.Tensor:
+    """(N, H, W) Gaussian-smoothed density at every march step j, the
+    counterpart of the jnp spec ``volym_tpu.render.slab.smoothed_densities``
+    (:func:`smooth_row` over the plain rows of :func:`_stencil_rows`; rows
+    beyond the sweep clamp to its end rows).  ``vol_perm`` as in
+    :func:`march_slabs` (uint8 in the u8 domain: the stencil is linear and
+    normalised, so the smoothed scaled density is 255x the smoothed
+    density)."""
+    _, height, width = feats.shape
+    f = feats.reshape(N_FEATURES, -1)
+    n, nr, nc = vol_perm.shape
+    rows = _stencil_rows(f, vol_perm, sign, params)
+    jf = torch.arange(n, dtype=torch.float32, device=f.device)[:, None]
+    out = smooth_row(f, jf, rows, n, nr, nc, params.interpolation == Interpolation.TRILINEAR)
     return out.reshape(n, height, width)
 
 
@@ -689,7 +786,22 @@ def replay_slabs(
     with the gradient-field cotangent in rows 1..3, and exactly 0.0 at the
     steps that composite nothing.  :func:`smooth_dd_transpose` and
     :func:`voxel_grad` take it from there.
+
+    With ``params.camera_grads`` the result gains ``d_feats`` (N_FEATURES,
+    H, W), the cotangent of the per-ray table (``_replay_step_body``
+    ``:817-892``): F_RS/F_RB/F_CS/F_CB from the coordinate derivative of
+    the density sample (:func:`_dsample`; unsmoothed only) and, when
+    shaded, of the three gradient-field samples, with trilinear sampling
+    only (box hats have none); F_AEXP through the opacity correction;
+    F_HX..F_HZ through the half vector when shaded; F_TS, under smoothing
+    with trilinear sampling, through the stencil's tap offsets
+    (:func:`smooth_row_dts`).  Every other row is 0.  The rows/cols chain
+    of the smoothed density is :func:`feats_grad`'s, after the stencil's
+    transpose.  Camera cotangents need the volume: no residual.
     """
+    camera = params.camera_grads
+    if camera and dens is not None:
+        raise ValueError("camera cotangents need the re-sampled replay: the stored residual has no coordinates")
     f = feats.reshape(N_FEATURES, -1)
     n_rays = f.shape[1]
     n, nr, nc = vol_perm.shape
@@ -706,7 +818,11 @@ def replay_slabs(
     if dens is not None:
         dens = dens.reshape(n, 4 if shading else 1, n_rays)
     elif smoothing:
-        smooth = smoothed_densities(feats, vol_perm, sign, params).reshape(n, n_rays)
+        rows = _stencil_rows(f, vol_perm, sign, params)
+        jf_all = torch.arange(n, dtype=torch.float32, device=f.device)[:, None]
+        smooth = smooth_row(f, jf_all, rows, n, nr, nc, bilinear)
+        dts = smooth_row_dts(f, jf_all, rows, n, nr, nc, bilinear) if camera and bilinear else None
+        del rows
 
     sign_ok = f[F_SIGNOK] > 0.5
     entry, exit_, aexp = f[F_ENTRY], f[F_EXIT], f[F_AEXP]
@@ -721,10 +837,14 @@ def replay_slabs(
         d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dev)
         d_grad = torch.zeros((3, n, nr, nc), dtype=torch.float32, device=dev) if shading else None
     d_lut = torch.zeros((ln, 4), dtype=torch.float32, device=dev)
+    d_feats = torch.zeros_like(f) if camera else None
     acc_c = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
     acc_a = torch.zeros((n_rays,), dtype=torch.float32, device=dev)
     for j in range(n):
         k, t, rows_c, cols_c = _step_coords(f, j, n, nr, nc, sign, bits)
+        coord_chain = camera and bilinear  # the coordinates' chain (box hats have none)
+        if coord_chain:
+            masks = _coord_masks(f, float(j), nr, nc)
         if dens is not None:
             density = dens[j, 0]
         else:
@@ -782,6 +902,8 @@ def replay_slabs(
                     dd_out[j, 1 + ch] = d_g[:, ch]
                 else:
                     _scatter_sample(d_grad[ch, k], rows_c, cols_c, d_g[:, ch], bilinear)
+            if camera:
+                d_feats[F_HX : F_HZ + 1] += (d_hdotn * nrm).t()
         d_rgba = torch.cat([d_rgb, d_a[:, None]], dim=-1)
 
         d_lut.index_add_(0, i0, d_rgba * (1.0 - fr)[:, None])
@@ -793,10 +915,55 @@ def replay_slabs(
             dd_out[j, 0] = dd
         else:
             _scatter_sample(d_vol[k], rows_c, cols_c, dd, bilinear)
+        if not camera:
+            continue
+        d_feats[F_AEXP] += d_alpha * log1ma * (alpha - 1.0)
+        if coord_chain:
+            d_rows = torch.zeros_like(dd)
+            d_cols = torch.zeros_like(dd)
+            if not smoothing:
+                d_rows, d_cols = _coord_chain(vol_perm[k], rows_c, cols_c, masks, dd)
+            if shading:
+                for ch in range(3):
+                    g_rows, g_cols = _coord_chain(grad_perm[ch, k], rows_c, cols_c, masks, d_g[:, ch])
+                    d_rows = d_rows + g_rows
+                    d_cols = d_cols + g_cols
+            _add_coord_chain(d_feats, j, d_rows, d_cols)
+            if smoothing:
+                d_feats[F_TS] += dd * dts[j]
+    height, width = out.shape[:2]
+    extra = (d_feats.reshape(N_FEATURES, height, width),) if camera else ()
     if smoothing:
-        height, width = out.shape[:2]
-        return (dd_out.reshape(n, 4, height, width) if shading else dd_out.reshape(n, height, width)), d_lut
-    return d_vol, d_grad, d_lut
+        return (dd_out.reshape(n, 4, height, width) if shading else dd_out.reshape(n, height, width)), d_lut, *extra
+    return d_vol, d_grad, d_lut, *extra
+
+
+def feats_grad(feats: torch.Tensor, vol_perm: torch.Tensor, dd: torch.Tensor, sign: int, params: RenderParams):
+    """The camera chain of the plain density rows under Gaussian smoothing
+    -> d_feats (N_FEATURES, H, W), nonzero in F_RS/F_RB/F_CS/F_CB only.
+    The plain version of the CUDA kernel (``ops/csrc/feats_grad.cu``) and
+    the counterpart of the TPU's ``_feats_grad_kernel`` (B5, ``:968-1061``).
+
+    ``dd``: (N, H, W) plain-row density cotangents in march order, the
+    output of :func:`smooth_dd_transpose`.  A smoothed step's density mixes
+    the plain rows of later steps, so their coordinate chain exists only
+    after the whole replay and the transpose: step j's cotangent times the
+    coordinate derivative of its own plain sample (:func:`_dsample` at the
+    step's snapped coordinates in the f32 slice ``vol_perm[k(j)]``), masked
+    where the raw coordinate is clipped, and accumulated over j in order.
+    Trilinear sampling only: box hats have no coordinate derivative."""
+    if params.interpolation != Interpolation.TRILINEAR:
+        raise ValueError("the plain rows' camera chain needs trilinear sampling: box hats have no derivative")
+    _, height, width = feats.shape
+    f = feats.reshape(N_FEATURES, -1)
+    n, nr, nc = vol_perm.shape
+    d = dd.reshape(n, -1)
+    out = torch.zeros_like(f)
+    for j in range(n):
+        k, _, rows_c, cols_c = _step_coords(f, j, n, nr, nc, sign, params.subtexel_bits)
+        d_rows, d_cols = _coord_chain(vol_perm[k], rows_c, cols_c, _coord_masks(f, float(j), nr, nc), d[j])
+        _add_coord_chain(out, j, d_rows, d_cols)
+    return out.reshape(N_FEATURES, height, width)
 
 
 def render(scene, camera_matrices, params: RenderParams, height: int, width: int) -> torch.Tensor:
@@ -811,11 +978,12 @@ def render(scene, camera_matrices, params: RenderParams, height: int, width: int
 def render_diff(scene, camera_matrices, params: RenderParams, height: int, width: int) -> torch.Tensor:
     """Plain differentiable slab render -> (H, W, 4) on the scene's device:
     :func:`march_slabs` forward and :func:`replay_slabs` backward (with
-    :func:`voxel_grad` under smoothing), the counterpart of the jnp
-    ``slab.render_diff`` (see :func:`volym_tpu_torch.ops.slab_march.render_diff`)."""
+    :func:`voxel_grad` and, for camera gradients, :func:`feats_grad` under
+    smoothing), the counterpart of the jnp ``slab.render_diff`` (see
+    :func:`volym_tpu_torch.ops.slab_march.render_diff`)."""
     from volym_tpu_torch.ops import slab_march
 
     return slab_march.render_diff(
         scene, camera_matrices, params, height, width, march_fn=march_slabs, replay_fn=replay_slabs,
-        scatter_fn=voxel_grad,
+        scatter_fn=voxel_grad, feats_grad_fn=feats_grad,
     )
