@@ -8,9 +8,9 @@ Phases, in order; any failure ends the run with a nonzero exit:
 1. require CUDA and print the card's name and power limit;
 2. build the CUDA kernels from ``volym_tpu_torch/ops/csrc`` (one nvcc per
    source, all started together): the march (B1), the replay (B2), the
-   voxel-gradient scatters (B3 and B4, one source), the plain rows' camera
-   chain (B5) and the look-ahead gate (B6 straight and B7 cone, one
-   source);
+   voxel-gradient scatters (B3 and B4, one source, fused with the smoothing
+   stencil's transpose and without it), the plain rows' camera chain (B5)
+   and the look-ahead gate (B6 straight and B7 cone, one source);
 3. hold the kernels to their plain PyTorch versions on the card: 64^3
    synthetic bonsai, 96x64 rays, every (major axis, sign) view x {nearest,
    trilinear} x {u8 native planes, f32 resampled planes} x {shaded,
@@ -26,12 +26,18 @@ Phases, in order; any failure ends the run with a nonzero exit:
    planes, f32 resampled 128 planes} x {shaded, unshaded}: the march with
    its residual, bit for bit (48), the unfused replay from the residual and
    re-sampled (96), whose two routes must give the same cotangents bit for
-   bit, and the scatters B3 (unshaded) and B4 (shaded) on the folded
-   cotangents (48); then camera gradients (``camera_grads=True``, so f32)
+   bit and whose step range must equal the plain one bit for bit, the
+   scatters B3 (unshaded) and B4 (shaded) without the fold on the folded
+   cotangents (48), and the fused fold-and-scatter on the replay's
+   cotangents and step range (48: every view x {nearest, trilinear} x
+   {shaded, unshaded} x {folded rows asked for on 256 planes, not on 128}),
+   with the count of folded rows bit-equal to the plain transpose's printed;
+   then camera gradients (``camera_grads=True``, so f32)
    on the 64^3 bonsai, and on the 256^3 one under smoothing, at 96x64
    rays, every view x {nearest, trilinear} x {shaded, unshaded} x
    {smoothing off, on}: B2's camera mode against the plain replay (48,
-   d_feats among its outputs) and, under trilinear smoothing, B5 against
+   d_feats among its outputs, the step range bit for bit) and, under
+   trilinear smoothing, B5 against
    the plain rows' chain on the folded cotangents (12), with the counts of
    bit-equal d_feats printed;
 4. serving: render the 256^3 synthetic bonsai at 1024x768 through
@@ -69,24 +75,34 @@ Phases, in order; any failure ends the run with a nonzero exit:
    the march and the replay with the residual and without it are timed
    in both serving configurations; then the training step under Gaussian
    smoothing in ``bench_gaussian`` and ``cli_default_gaussian`` at 256x256
-   and 1024x768, a few steps each: the launch counts of the march, the
-   replay and the scatter (B3 unshaded, B4 shaded) equal the steps; the
-   replay route each takes is printed; step 0 is checked against the plain
-   step, B3/B4 and B2's cotangents on both routes against their plain
-   versions; B1 with smoothing and its residual, B2 unfused on each route, the
-   stencil's transpose, B3/B4 (beside ``index_add_`` of the precomputed
-   corner indices and weights) and the whole step are timed with CUDA
-   events, and a step is profiled; at 1024x768 the re-sampled route is also
+   and 1024x768, a few steps each, with the plain transpose made to raise
+   on CUDA tensors: the launch counts of the march, the replay and the
+   fused fold-and-scatter (B3 unshaded, B4 shaded) equal the steps and the
+   scatter without the fold is not launched; the replay route each takes is
+   printed; step 0 is checked against the plain step, the fused kernel
+   (with its default chunk of rows a thread and with chunks of 16), the
+   scatter without the fold and B2's cotangents and step range on both
+   routes against their plain versions; the step ranges' statistics (the
+   rows walked, the dd entries in range, the nonzero entries, N x R) are
+   printed; B1 with smoothing and its residual, B2 unfused on each route, the
+   fused kernel with 5 chunk sizes (beside ``index_add_`` of the nonzero
+   folded entries' precomputed corner indices and weights, and its bound), the
+   scatter without the fold and the whole step are timed with CUDA events,
+   the plain transpose and the plain fold-and-scatter once, and a step is
+   profiled and must launch fewer device kernels than the plain transpose
+   alone; at 1024x768 the re-sampled route is also
    forced (a zero residual budget) and its step checked and timed; then the
    smoothed training step with camera gradients (the default
    ``camera_grads=True``; f32 planes, re-sampled replay) in both smoothed
    configurations at 1024x768, a few steps each, with ``inverse_view_proj``
-   and ``position`` as leaves: the launch counts of B1, B2, B3 or B4, and
-   B5 (trilinear only) equal the steps; step 0's image, d_volume, d_lut
-   and camera gradient are checked against the plain step; B2 with and
-   without its camera chain, the transpose, B5 (with its bound) and the
-   whole step are timed with CUDA events beside the step without camera
-   gradients, and a step is profiled;
+   and ``position`` as leaves, the plain transpose again made to raise: the
+   launch counts of B1, B2, the fused B3 or B4, and B5 (trilinear only)
+   equal the steps; step 0's image, d_volume, d_lut and camera gradient
+   are checked against the plain step, the folded rows the fused kernel
+   writes for B5 against the plain transpose's; B2 with and without its
+   camera chain, the fused kernel, B5 (with its bound) and the whole step
+   are timed with CUDA events beside the step without camera gradients,
+   the plain transpose once, and a step is profiled;
 7. descent: 20 Adam steps (lr 1e-2, clamped to [0, 1]) on the volume and
    the LUT from a flat volume towards an image of the bonsai, on the f32
    stream (u8_volume=False, as fitting requires); the loss must fall;
@@ -145,6 +161,16 @@ SMOOTH_OPS_PER_STEP = 300
 #: f32 operations of the scatter (csrc/voxel_grad.cu) a nonzero channel:
 #: the coordinates and the snap once, and the 4 weights and products
 SCATTER_OPS_PER_ENTRY = 30
+#: f32 operations of the fused fold (csrc/voxel_grad.cu, FOLD), counted
+#: from the source: a ray's constants (5 taps: the offset, its two
+#: products and 7 hats of 5 operations each), a nonzero source step's
+#: in-box bits and wsum (the raw coordinates, 5 taps of 3 sums, 6 compares
+#: and the weight's sum), and each offset's term of a nonzero source (5
+#: selected sums, a division, a product and the row's sum); each nonzero
+#: plain row or channel then scatters (SCATTER_OPS_PER_ENTRY)
+FOLD_OPS_PER_RAY = 190
+FOLD_OPS_PER_SOURCE = 55
+FOLD_OPS_PER_TERM = 13
 #: f32 operations of the plain rows' camera chain (csrc/feats_grad.cu) a
 #: nonzero cotangent: the raw coordinates, the clip and the snap, dsample's
 #: fractions and its two contractions, the masks and the four sums
@@ -280,11 +306,46 @@ def scatter_indices(feats, dd, vol_shape, sign, params):
     return torch.cat(idx), torch.cat(vals), d.shape[1] * n * nr * nc
 
 
+def fold_inputs(feats, dd, steps):
+    """What the fused fold-and-scatter reads on these inputs: the rows each
+    ray walks (its step range and the stencil's halo, clamped to the sweep;
+    their sum and the longest), the dd entries inside the ranges (every
+    channel), the nonzero entries of dd, N x R, and the nonzero density
+    (sources) and gradient-field (channels) entries that the operation
+    count of :func:`fold_bound` reads."""
+    import torch
+
+    n, rays = dd.shape[0], feats.shape[1] * feats.shape[2]
+    first, last = steps.reshape(2, -1).long()
+    live = first <= last
+    walks = (torch.clamp(last + 3, max=n - 1) - torch.clamp(first - 3, min=0) + 1)[live]
+    walked = int(walks.sum())
+    in_range = int((last - first + 1)[live].sum()) * (dd.shape[1] if dd.dim() == 4 else 1)
+    d0 = dd[:, 0] if dd.dim() == 4 else dd
+    sources = int((d0 != 0.0).sum())
+    channels = int((dd[:, 1:] != 0.0).sum()) if dd.dim() == 4 else 0
+    return dict(rays_with_range=int(live.sum()), walked_rows=walked,
+                longest_walk=int(walks.max()) if walks.numel() else 0, in_range_entries=in_range,
+                nonzero_entries=int((dd != 0.0).sum()), n_x_r=n * rays, sources=sources, channels=channels)
+
+
+def fold_bound(feats, dd, steps, folded_rows, out_tensors, stats):
+    """The fused kernel's bound: the in-range dd, the range table and 5 rows
+    of the per-ray table read once, its outputs written once; the
+    operations of :func:`fold_inputs` with ``folded_rows``, the nonzero
+    plain rows it scatters."""
+    rays = feats.shape[1] * feats.shape[2]
+    n_bytes = stats["in_range_entries"] * 4 + nbytes(steps) + 5 * rays * 4 + nbytes(*out_tensors)
+    ops = (stats["rays_with_range"] * FOLD_OPS_PER_RAY + stats["sources"] * (FOLD_OPS_PER_SOURCE + 7 * FOLD_OPS_PER_TERM)
+           + (folded_rows + stats["channels"]) * SCATTER_OPS_PER_ENTRY)
+    return bound(n_bytes, ops)
+
+
 def device_profile(fn, reps, top=6):
     """``torch.profiler`` over ``reps`` calls after a warm-up: the wall time
     a call (with the profiler's overhead), the device time a call summed
-    over kernels and copies, and the kernels with the most device time
-    (ms a call)."""
+    over kernels and copies, the device kernels launched a call, and the
+    kernels with the most device time (ms a call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -301,8 +362,47 @@ def device_profile(fn, reps, top=6):
     rows.sort(key=lambda e: -e.self_device_time_total)
     return dict(
         wall_ms=wall * 1e3 / reps, device_busy_ms=busy, idle_share=1.0 - busy / (wall * 1e3 / reps),
+        device_launches=sum(e.count for e in rows) / reps,
         top={e.key[:60]: e.self_device_time_total / 1e3 / reps for e in rows[:top]},
     )
+
+
+class NoTranspose:
+    """Inside it, the plain transpose of the smoothing stencil raises on
+    CUDA tensors: the smoothed backward on the card must run the fused
+    kernel instead."""
+
+    def __enter__(self):
+        from volym_tpu_torch.render import slab
+
+        self._slab, self._plain = slab, slab.smooth_dd_transpose
+
+        def guard(feats, *args, **kwargs):
+            if feats.device.type == "cuda":
+                raise AssertionError("the plain transpose ran on CUDA tensors on the main path")
+            return self._plain(feats, *args, **kwargs)
+
+        slab.smooth_dd_transpose = guard
+        return self
+
+    def __exit__(self, *exc):
+        self._slab.smooth_dd_transpose = self._plain
+        return False
+
+
+def unfold(feats, dd, vol_shape, params):
+    """The replay's per-step cotangents with the density channel folded onto
+    the plain rows by the plain transpose, the other channels as they are:
+    what the scatter without the fold (B3/B4's other variant) takes."""
+    import torch
+
+    from volym_tpu_torch.render import slab
+
+    _, nr, nc = vol_shape
+    bilinear = params.interpolation.value == "trilinear"
+    if dd.dim() == 4:
+        return torch.cat([slab.smooth_dd_transpose(feats, dd[:, 0], nr, nc, bilinear)[:, None], dd[:, 1:]], dim=1)
+    return slab.smooth_dd_transpose(feats, dd, nr, nc, bilinear)
 
 
 def main() -> int:
@@ -482,7 +582,8 @@ def main() -> int:
     t0 = time.perf_counter()
     scene = Scene.synthetic("bonsai", side=FULL_SIDE, seed=0, device=dev)
     log(f"scene: {FULL_SIDE}^3 synthetic bonsai made in {time.perf_counter() - t0:.1f} s")
-    n_smooth, n_smooth_replay, n_scatter, n_engaged = 0, 0, 0, 0
+    n_smooth, n_smooth_replay, n_scatter, n_engaged, n_fold = 0, 0, 0, 0, 0
+    fold_rows = [0, 0]  # folded rows with one source an offset: bit-equal, compared
     for h, v in ORBITS:
         cam = Camera(aspect=SMALL_W / SMALL_H, distance=1.3).orbit(h, v, 0.0).matrices()
         view = slab.dominant_axis(cam)
@@ -511,22 +612,26 @@ def main() -> int:
                         img, slab_march.march_cuda(feats, vol, lut, sign, p.replace(use_gaussian_smoothing=False),
                                                    grad, u8=u8))
 
-                    plain_dd, plain_lut = slab.replay_slabs(feats, vol, lut, sign, p, img, g_small, grad, u8, dens)
+                    plain_dd, plain_steps, plain_lut = slab.replay_slabs(feats, vol, lut, sign, p, img, g_small, grad,
+                                                                         u8, dens)
                     routes = {}
                     for route, d in (("stored", dens), ("re-sampled", None)):
-                        dd, d_lut = slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g_small, grad, u8, d)
+                        dd, steps, d_lut = slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g_small, grad, u8, d)
                         torch.cuda.synchronize()
                         if not (bool(torch.isfinite(dd).all()) and bool(torch.isfinite(d_lut).all())):
                             raise AssertionError(f"{label} {route}: non-finite")
                         hold("slab_replay", plain_dd, dd, f"{label} {route} dd")
                         hold("slab_replay", plain_lut, d_lut, f"{label} {route} d_lut", lut)
+                        if not torch.equal(plain_steps, steps):
+                            raise AssertionError(f"{label} {route}: the step range differs from the plain replay's")
                         routes[route] = dd
                         n_smooth_replay += 1
                     if not torch.equal(routes["stored"], routes["re-sampled"]):
                         raise AssertionError(f"{label}: the two replay routes give different cotangents")
 
+                    # B3/B4 without the fold, on the plain-folded cotangents
                     kernel = "voxel_grad_shaded" if shading else "voxel_grad"
-                    folded = slab_march.fold_smoothed(feats, plain_dd, vol.shape, p)
+                    folded = unfold(feats, plain_dd, vol.shape, p)
                     d_vol, d_grad = voxel_grad.scatter_cuda(feats, folded, vol.shape, sign, p)
                     plain_vol, plain_grad = slab.voxel_grad(feats, folded, vol.shape, sign, p)
                     torch.cuda.synchronize()
@@ -536,13 +641,33 @@ def main() -> int:
                     if float(plain_vol.abs().max()) <= 0.0:
                         raise AssertionError(f"{label}: zero d_vol")
                     n_scatter += 1
+
+                    # the fused fold-and-scatter, the folded rows asked for on 256 planes
+                    want_rows = stream == "u8"
+                    d_vol, d_grad, rows = voxel_grad.fold_scatter_cuda(feats, plain_dd, plain_steps, vol.shape, sign,
+                                                                       p, want_rows)
+                    fv, fg, frows = slab.smooth_voxel_grad(feats, plain_dd, plain_steps, vol.shape, sign, p, True)
+                    torch.cuda.synchronize()
+                    hold(kernel, fv, d_vol, f"{label} fold d_vol")
+                    if shading:
+                        hold(kernel, fg, d_grad, f"{label} fold d_grad")
+                    if want_rows:
+                        inner = frows[1:-1] == rows[1:-1]
+                        fold_rows[0] += int(inner.reshape(inner.shape[0], -1).all(1).sum())
+                        fold_rows[1] += inner.shape[0]
+                        hold(kernel, frows, rows, f"{label} folded rows")
+                    elif rows is not None:
+                        raise AssertionError(f"{label}: folded rows not asked for, but returned")
+                    n_fold += 1
     log(f"small smoothing: march with residual == plain bit for bit in {n_smooth}/48 cases (smoothing changed "
         f"the image in {n_engaged}); unfused replay == plain in {n_smooth_replay}/96, stored and re-sampled, the "
-        f"two routes bit for bit; B3/B4 == plain in {n_scatter}/48 (max abs err {err['voxel_grad']:.3e} / "
-        f"{err['voxel_grad_shaded']:.3e}, over its scale {rel['voxel_grad']:.3e} / {rel['voxel_grad_shaded']:.3e})")
-    if (n_smooth, n_smooth_replay, n_scatter) != (48, 96, 48) or n_engaged != 48:
-        raise AssertionError(f"{n_smooth}, {n_smooth_replay}, {n_scatter} smoothing cases ran, expected 48, 96, 48; "
-                             f"smoothing changed {n_engaged} images")
+        f"two routes bit for bit, the step range bit for bit; B3/B4 without the fold == plain in {n_scatter}/48 and "
+        f"fused with the fold == plain in {n_fold}/48 (max abs err {err['voxel_grad']:.3e} / "
+        f"{err['voxel_grad_shaded']:.3e}, over its scale {rel['voxel_grad']:.3e} / {rel['voxel_grad_shaded']:.3e}); "
+        f"folded rows with one source an offset bit for bit: {fold_rows[0]}/{fold_rows[1]}")
+    if (n_smooth, n_smooth_replay, n_scatter, n_fold) != (48, 96, 48, 48) or n_engaged != 48:
+        raise AssertionError(f"{n_smooth}, {n_smooth_replay}, {n_scatter}, {n_fold} smoothing cases ran, expected 48, "
+                             f"96, 48, 48; smoothing changed {n_engaged} images")
 
     # camera gradients: B2's camera mode and B5 against their plain versions
     # (f32: camera cotangents turn the u8 stream and the residual off), the
@@ -571,15 +696,17 @@ def main() -> int:
                         raise AssertionError(f"{label}: non-finite")
                     if float(want[-1].abs().max()) <= 0.0:
                         raise AssertionError(f"{label}: zero d_feats")
-                    for name, a, b in zip(("dd" if smooth else "d_vol", "d_grad"), want[:-2], got[:-2]):
-                        if a is not None:
-                            hold("slab_replay", a, b, f"{label} {name}")
+                    hold("slab_replay", want[0], got[0], f"{label} {'dd' if smooth else 'd_vol'}")
+                    if smooth:
+                        if not torch.equal(want[1], got[1]):
+                            raise AssertionError(f"{label}: the step range differs from the plain replay's")
+                    elif shading:
+                        hold("slab_replay", want[1], got[1], f"{label} d_grad")
                     hold("slab_replay", want[-2], got[-2], f"{label} d_lut", lut)
                     hold("slab_replay", want[-1], got[-1], f"{label} d_feats")
                     n_cam, n_cam_bits = n_cam + 1, n_cam_bits + torch.equal(want[-1], got[-1])
                     if smooth and tri:
-                        folded = slab_march.fold_smoothed(feats, want[0].clone(), vol.shape, p)
-                        plain_dd = folded[:, 0] if shading else folded
+                        plain_dd = slab.smooth_voxel_grad(feats, want[0], want[1], vol.shape, sign, p, True)[2]
                         b5 = feats_grad.feats_grad_cuda(feats, vol, plain_dd, sign, p)
                         plain_b5 = slab.feats_grad(feats, vol, plain_dd, sign, p)
                         torch.cuda.synchronize()
@@ -900,7 +1027,8 @@ def main() -> int:
     log(f"replay routes at {FULL_H}x{FULL_W}, fwd + bwd kernels: {json.dumps(routes)}")
 
     # phase 6b: the training step under Gaussian smoothing: B1 with the
-    # stencil, B2 unfused, the stencil's transpose (torch) and B3 or B4
+    # stencil, B2 unfused with its step range, and B3 or B4 with the
+    # stencil's transpose fused in
     gauss_train = {name: configs[name].replace(camera_grads=False) for name in ("bench_gaussian", "cli_default_gaussian")}
     gtrainers = {}
     for name, p in gauss_train.items():
@@ -911,30 +1039,35 @@ def main() -> int:
                                                                   differentiable=True))
 
     def gcounts():
-        return slab_march.LAUNCHES, slab_replay.LAUNCHES, voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES
+        return (slab_march.LAUNCHES, slab_replay.LAUNCHES, voxel_grad.FOLD_LAUNCHES, voxel_grad.FOLD_SHADED_LAUNCHES,
+                voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES)
 
     gstep0, gper = {}, {}
     # the smoothed training path starts here
     slab_march.LAUNCHES = slab_replay.LAUNCHES = voxel_grad.LAUNCHES = voxel_grad.SHADED_LAUNCHES = 0
-    for key, (p, s, cm, render) in gtrainers.items():
-        before = gcounts()
-        for i in range(GAUSS_TRAIN_STEPS):
-            s.volume.grad = s.tf_lut.grad = None
-            img = render(cm)
-            img.sum().backward()
-            if i == 0:
-                gstep0[key] = (img.detach().clone(), s.volume.grad.clone(), s.tf_lut.grad.clone())
-        torch.cuda.synchronize()
-        gper[key] = tuple(a - b for a, b in zip(gcounts(), before))
+    voxel_grad.FOLD_LAUNCHES = voxel_grad.FOLD_SHADED_LAUNCHES = 0
+    with NoTranspose():
+        for key, (p, s, cm, render) in gtrainers.items():
+            before = gcounts()
+            for i in range(GAUSS_TRAIN_STEPS):
+                s.volume.grad = s.tf_lut.grad = None
+                img = render(cm)
+                img.sum().backward()
+                if i == 0:
+                    gstep0[key] = (img.detach().clone(), s.volume.grad.clone(), s.tf_lut.grad.clone())
+            torch.cuda.synchronize()
+            gper[key] = tuple(a - b for a, b in zip(gcounts(), before))
     gtrain_launches = gcounts()  # the smoothed training path ends here
     for (name, h, w), launched in gper.items():
         shaded = gauss_train[name].use_shading
-        want = (GAUSS_TRAIN_STEPS, GAUSS_TRAIN_STEPS, 0 if shaded else GAUSS_TRAIN_STEPS, GAUSS_TRAIN_STEPS if shaded else 0)
+        want = (GAUSS_TRAIN_STEPS, GAUSS_TRAIN_STEPS, 0 if shaded else GAUSS_TRAIN_STEPS,
+                GAUSS_TRAIN_STEPS if shaded else 0, 0, 0)
         if launched != want:
-            raise AssertionError(f"smoothed training {name} {h}x{w}: (march, replay, B3, B4) launches {launched}, "
-                                 f"expected {want}")
-    log(f"smoothed training: (march, replay, B3, B4) launches {gtrain_launches} for {len(gtrainers)} x "
-        f"{GAUSS_TRAIN_STEPS} steps ({ {f'{k[0]} {k[1]}x{k[2]}': v for k, v in gper.items()} })")
+            raise AssertionError(f"smoothed training {name} {h}x{w}: (march, replay, B3 fold, B4 fold, B3, B4) "
+                                 f"launches {launched}, expected {want}")
+    log(f"smoothed training: (march, replay, B3 fold, B4 fold, B3, B4) launches {gtrain_launches} for "
+        f"{len(gtrainers)} x {GAUSS_TRAIN_STEPS} steps, no plain transpose on the card "
+        f"({ {f'{k[0]} {k[1]}x{k[2]}': v for k, v in gper.items()} })")
 
     gtraining = {}
     for key, (p, s, cm, render) in gtrainers.items():
@@ -973,10 +1106,11 @@ def main() -> int:
         stored = slab_replay.use_stored_density(p, vol.shape[0], rays)
         out, dens = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, emit_density=True)
         g = torch.ones_like(out)
-        dd, _ = slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8, dens)
+        dd, steps, _ = slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8, dens)
         dd0 = dd[:, 0] if shaded else dd
         bilinear = p.interpolation.value == "trilinear"
-        folded = slab_march.fold_smoothed(feats, dd.clone(), vol.shape, p)
+        folded = unfold(feats, dd, vol.shape, p)
+        stats = fold_inputs(feats, dd, steps)
         row = dict(
             planes=int(vol.shape[0]), u8=u8, shading=shaded, interpolation=p.interpolation.value,
             route="stored" if stored else "re-sampled", residual_mib=dens.numel() * 4 / 2**20,
@@ -986,28 +1120,60 @@ def main() -> int:
             fwd_ms=cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8), 10),
             replay_stored_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8, dens), 10),
             replay_resampled_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8), 10),
-            transpose_ms=cuda_ms(lambda: slab.smooth_dd_transpose(feats, dd0, vol.shape[1], vol.shape[2], bilinear), 5),
-            scatter_ms=cuda_ms(lambda: voxel_grad.scatter_cuda(feats, folded, vol.shape, sign, p), 10),
+            fold_ms=cuda_ms(lambda: voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p), 10),
+            # the rows a thread walks: all of its ray's, or chunks of them
+            fold_chunks_ms={
+                chunk: cuda_ms(lambda chunk=chunk: voxel_grad.fold_scatter_cuda(
+                    feats, dd, steps, vol.shape, sign, p, chunk=chunk), 10)
+                for chunk in (vol.shape[0], 64, 32, 16, 8)
+            },
+            unfolded_scatter_ms=cuda_ms(lambda: voxel_grad.scatter_cuda(feats, folded, vol.shape, sign, p), 10),
+            plain_transpose_ms=cuda_ms(
+                lambda: slab.smooth_dd_transpose(feats, dd0, vol.shape[1], vol.shape[2], bilinear), 1),
+            ranges=stats,
         )
-        d_v, d_g = voxel_grad.scatter_cuda(feats, folded, vol.shape, sign, p)
-        plain_v, plain_g = slab.voxel_grad(feats, folded, vol.shape, sign, p)
+        row["plain_transpose_launches"] = device_profile(
+            lambda: slab.smooth_dd_transpose(feats, dd0, vol.shape[1], vol.shape[2], bilinear), 1)["device_launches"]
+        # the fused kernel (two chunk sizes) and the scatter without the fold against their plain versions
+        plain_v, plain_g, plain_rows = slab.smooth_voxel_grad(feats, dd, steps, vol.shape, sign, p, True)
+        default_chunk = voxel_grad.fold_chunk(vol.shape[0], h, w)
+        row["fold_chunk"] = default_chunk
+        for chunk in sorted({default_chunk, 16}):
+            d_v, d_g, rows = voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, True, chunk)
+            torch.cuda.synchronize()
+            r, _ = hold(kernel, plain_v, d_v, f"{label} fold d_vol chunk={chunk}")
+            if shaded:
+                hold(kernel, plain_g, d_g, f"{label} fold d_grad chunk={chunk}")
+            inner = (plain_rows[1:-1] == rows[1:-1]).reshape(rows.shape[0] - 2, -1).all(1)
+            row[f"fold_check chunk {chunk}"] = dict(
+                d_vol_max_abs_err=r.max_abs_err, d_vol_scale=r.scale,
+                folded_rows_bitwise=f"{int(inner.sum())}/{inner.numel()}",
+                folded_rows_max_abs_err=float((plain_rows - rows).abs().max()))
+        fold_out = voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p)
+        row["fold_bound"] = fold_bound(feats, dd, steps, int((plain_rows != 0.0).sum()), fold_out[:2], stats)
+        del rows, fold_out
+        u_v, u_g = voxel_grad.scatter_cuda(feats, folded, vol.shape, sign, p)
         torch.cuda.synchronize()
-        hold(kernel, plain_v, d_v, f"{label} scatter d_vol")
+        hold(kernel, plain_v, u_v, f"{label} scatter without the fold d_vol")
         if shaded:
-            hold(kernel, plain_g, d_g, f"{label} scatter d_grad")
+            hold(kernel, plain_g, u_g, f"{label} scatter without the fold d_grad")
+        del u_v, u_g, plain_rows
         # B2 unfused on both routes against the plain replay
-        plain_dd, plain_dl = slab.replay_slabs(feats, vol, lut, sign, p, out, g, grad, u8, dens)
+        plain_dd, plain_steps, plain_dl = slab.replay_slabs(feats, vol, lut, sign, p, out, g, grad, u8, dens)
         for route, d in (("stored", dens), ("re-sampled", None)):
-            got_dd, got_dl = slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8, d)
+            got_dd, got_steps, got_dl = slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8, d)
             hold("slab_replay", plain_dd, got_dd, f"{label} {route} replay dd")
             hold("slab_replay", plain_dl, got_dl, f"{label} {route} replay d_lut", lut)
-        del plain_dd, plain_dl, got_dd, got_dl
+            if not torch.equal(plain_steps, got_steps):
+                raise AssertionError(f"{label} {route}: the step range differs from the plain replay's")
+        del plain_dd, plain_steps, plain_dl, got_dd, got_steps, got_dl
+        # index_add_ of the nonzero folded entries' precomputed corners
         idx, vals, size = scatter_indices(feats, folded, vol.shape, sign, p)
-        row["scatter_library_ms"] = cuda_ms(
+        row["fold_library_ms"] = cuda_ms(
             lambda: torch.zeros(size, dtype=torch.float32, device=dev).index_add_(0, idx, vals), 10)
         lib = torch.zeros(size, dtype=torch.float32, device=dev).index_add_(0, idx, vals)
-        parity.check_close(lib[: d_v.numel()].reshape(d_v.shape), d_v, f"{label} index_add_ vs B3/B4")
-        row["plain_scatter_ms"] = cuda_ms(lambda: slab.voxel_grad(feats, folded, vol.shape, sign, p), 1)
+        parity.check_close(lib[: plain_v.numel()].reshape(plain_v.shape), plain_v, f"{label} index_add_ vs plain")
+        row["plain_fold_ms"] = cuda_ms(lambda: slab.smooth_voxel_grad(feats, dd, steps, vol.shape, sign, p), 1)
         row["plain_replay_ms"] = cuda_ms(lambda: slab.replay_slabs(feats, vol, lut, sign, p, out, g, grad, u8, dens), 1)
         row["plain_fwd_ms"] = cuda_ms(lambda: slab.march_slabs(feats, vol, lut, sign, p, grad, u8), 1)
 
@@ -1015,10 +1181,14 @@ def main() -> int:
             s.volume.grad = s.tf_lut.grad = None
             render(cm).sum().backward()
 
-        row["step_ms"] = cuda_ms(kernel_step, 5)
+        with NoTranspose():
+            row["step_ms"] = cuda_ms(kernel_step, 5)
+            row["profile"] = device_profile(kernel_step, 3)
         row["plain_step_ms"] = plain_step_ms
         row["rays_per_s"] = rays / (row["step_ms"] / 1e3)
-        row["profile"] = device_profile(kernel_step, 3)
+        if row["profile"]["device_launches"] >= row["plain_transpose_launches"]:
+            raise AssertionError(f"{label}: the step launches {row['profile']['device_launches']} device kernels, "
+                                 f"the plain transpose alone {row['plain_transpose_launches']}")
         if (h, w) == (FULL_H, FULL_W):
             # the re-sampled route, forced: a zero residual budget
             budget = slab_replay.STORE_DENSITY_BUDGET_MB
@@ -1039,16 +1209,16 @@ def main() -> int:
         entries = int((folded != 0.0).sum())
         row["fwd_bound"] = bound(nbytes(feats, vol, lut, grad, out, dens),
                                  composited * MARCH_OPS_PER_STEP + sampled * SMOOTH_OPS_PER_STEP)
-        row["replay_bound"] = bound(nbytes(feats, lut, out, g, dd, lut) + int((dens != 0.0).sum()) * 4,
+        row["replay_bound"] = bound(nbytes(feats, lut, out, g, dd, steps, lut) + int((dens != 0.0).sum()) * 4,
                                     composited * REPLAY_OPS_PER_STEP)
-        row["scatter_bound"] = bound(nbytes(feats, folded, d_v, d_g), entries * SCATTER_OPS_PER_ENTRY)
         row.update(composited_steps=composited, sampled_steps=sampled, scatter_entries=entries, step0=agree)
         gtraining[f"{name} {h}x{w}"] = row
         log(f"{label}: {json.dumps(row)}")
-        del out, dens, dd, dd0, folded, g, idx, vals, lib, d_v, d_g, plain_v, plain_g
+        del out, dens, dd, dd0, steps, folded, g, idx, vals, lib, d_v, d_g, plain_v, plain_g
 
     # phase 6c: the smoothed training step with camera gradients: B1 on f32
-    # planes, B2 with its camera chain (re-sampled), the transpose, B3 or B4,
+    # planes, B2 with its camera chain (re-sampled), B3 or B4 with the
+    # transpose fused in (writing the folded rows under trilinear sampling),
     # and B5 under trilinear sampling; autograd carries d_feats to the camera
     cam_train = {name: configs[name].replace(camera_grads=True) for name in ("bench_gaussian", "cli_default_gaussian")}
     cam0 = Camera(aspect=FULL_W / FULL_H, distance=1.0).orbit(30.0, 20.0, 0.0)
@@ -1063,8 +1233,8 @@ def main() -> int:
         return {leaf: getattr(cm, leaf).grad for leaf in ("view", "proj", "inverse_view_proj", "position")}
 
     def ccounts():
-        return (slab_march.LAUNCHES, slab_replay.LAUNCHES, voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES,
-                feats_grad.LAUNCHES)
+        return (slab_march.LAUNCHES, slab_replay.LAUNCHES, voxel_grad.FOLD_LAUNCHES, voxel_grad.FOLD_SHADED_LAUNCHES,
+                feats_grad.LAUNCHES, voxel_grad.LAUNCHES + voxel_grad.SHADED_LAUNCHES)
 
     ctrainers = {}
     for name, p in cam_train.items():
@@ -1074,27 +1244,30 @@ def main() -> int:
     cstep0, cper = {}, {}
     # the camera-gradient training path starts here
     slab_march.LAUNCHES = slab_replay.LAUNCHES = voxel_grad.LAUNCHES = voxel_grad.SHADED_LAUNCHES = 0
-    feats_grad.LAUNCHES = 0
-    for name, (p, s, render) in ctrainers.items():
-        before = ccounts()
-        for i in range(CAM_STEPS):
-            s.volume.grad = s.tf_lut.grad = None
-            cm = cam_leaves()
-            img = render(cm)
-            img.sum().backward()
-            if i == 0:
-                cstep0[name] = (img.detach().clone(), s.volume.grad.clone(), s.tf_lut.grad.clone(), camera_grads(cm))
-        torch.cuda.synchronize()
-        cper[name] = tuple(a - b for a, b in zip(ccounts(), before))
+    voxel_grad.FOLD_LAUNCHES = voxel_grad.FOLD_SHADED_LAUNCHES = feats_grad.LAUNCHES = 0
+    with NoTranspose():
+        for name, (p, s, render) in ctrainers.items():
+            before = ccounts()
+            for i in range(CAM_STEPS):
+                s.volume.grad = s.tf_lut.grad = None
+                cm = cam_leaves()
+                img = render(cm)
+                img.sum().backward()
+                if i == 0:
+                    cstep0[name] = (img.detach().clone(), s.volume.grad.clone(), s.tf_lut.grad.clone(),
+                                    camera_grads(cm))
+            torch.cuda.synchronize()
+            cper[name] = tuple(a - b for a, b in zip(ccounts(), before))
     ctrain_launches = ccounts()  # the camera-gradient training path ends here
     for name, launched in cper.items():
         p = cam_train[name]
         shaded, tri = p.use_shading, p.interpolation.value == "trilinear"
-        want = (CAM_STEPS, CAM_STEPS, 0 if shaded else CAM_STEPS, CAM_STEPS if shaded else 0, CAM_STEPS if tri else 0)
+        want = (CAM_STEPS, CAM_STEPS, 0 if shaded else CAM_STEPS, CAM_STEPS if shaded else 0, CAM_STEPS if tri else 0,
+                0)
         if launched != want:
-            raise AssertionError(f"camera training {name}: (march, replay, B3, B4, B5) launches {launched}, "
-                                 f"expected {want}")
-    log(f"camera training: (march, replay, B3, B4, B5) launches {ctrain_launches} for {len(ctrainers)} x "
+            raise AssertionError(f"camera training {name}: (march, replay, B3 fold, B4 fold, B5, B3/B4 without the "
+                                 f"fold) launches {launched}, expected {want}")
+    log(f"camera training: (march, replay, B3 fold, B4 fold, B5, B3/B4 without the fold) launches {ctrain_launches} for {len(ctrainers)} x "
         f"{CAM_STEPS} steps ({cper})")
 
     ctraining = {}
@@ -1136,19 +1309,25 @@ def main() -> int:
         feats, vol, lut, sign, grad, _ = slab_march.prepare(scene, cm, p.replace(u8_volume=False), FULL_H, FULL_W)
         out = slab_march.march_cuda(feats, vol, lut, sign, p, grad)
         g = torch.ones_like(out)
-        dd = slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad)[0]
+        dd, steps = slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad)[:2]
         dd0 = dd[:, 0] if shaded else dd
-        folded = slab_march.fold_smoothed(feats, dd.clone(), vol.shape, p)
-        plain_dd = folded[:, 0] if shaded else folded
+        plain_dd = slab.smooth_dd_transpose(feats, dd0, vol.shape[1], vol.shape[2], tri)
         nocam = p.replace(camera_grads=False)
         row = dict(
             planes=int(vol.shape[0]), shading=shaded, interpolation=p.interpolation.value,
             fwd_ms=cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad), 10),
             replay_camera_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad), 10),
             replay_no_camera_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, nocam, out, g, grad), 10),
-            transpose_ms=cuda_ms(lambda: slab.smooth_dd_transpose(feats, dd0, vol.shape[1], vol.shape[2], tri), 3),
-            scatter_ms=cuda_ms(lambda: voxel_grad.scatter_cuda(feats, folded, vol.shape, sign, p), 10),
+            plain_transpose_ms=cuda_ms(lambda: slab.smooth_dd_transpose(feats, dd0, vol.shape[1], vol.shape[2], tri), 1),
+            fold_ms=cuda_ms(lambda: voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, tri), 10),
+            ranges=fold_inputs(feats, dd, steps),
         )
+        rows_k = voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, tri)[2]
+        if tri:
+            inner = (plain_dd[1:-1] == rows_k[1:-1]).reshape(plain_dd.shape[0] - 2, -1).all(1)
+            row["folded_rows_bitwise"] = f"{int(inner.sum())}/{inner.numel()}"
+            hold("voxel_grad_shaded" if shaded else "voxel_grad", plain_dd, rows_k, f"{label} folded rows")
+        del rows_k
         if tri:
             b5 = feats_grad.feats_grad_cuda(feats, vol, plain_dd, sign, p)
             plain_b5 = slab.feats_grad(feats, vol, plain_dd, sign, p)
@@ -1175,13 +1354,14 @@ def main() -> int:
             s.volume.grad = s.tf_lut.grad = None
             nocam_render(cam0.matrices()).sum().backward()
 
-        row.update(
-            step_ms=cuda_ms(kernel_step, 5), no_camera_step_ms=cuda_ms(nocam_step, 5), plain_step_ms=plain_step_ms,
-            profile=device_profile(kernel_step, 3), step0=agree,
-        )
+        with NoTranspose():
+            row.update(
+                step_ms=cuda_ms(kernel_step, 5), no_camera_step_ms=cuda_ms(nocam_step, 5), plain_step_ms=plain_step_ms,
+                profile=device_profile(kernel_step, 3), step0=agree,
+            )
         ctraining[name] = row
         log(f"{label}: {json.dumps(row)}")
-        del out, g, dd, dd0, folded, plain_dd
+        del out, g, dd, dd0, steps, plain_dd
 
     # phase 7: a few descent steps on the f32 stream
     fit_p = train_p.replace(u8_volume=False)
@@ -1237,15 +1417,17 @@ def main() -> int:
         la = la_results[name]
         rows[kernel] = dict(launches=launches, ms=la["gate_ms"], plain_ms=la["plain_gate_ms"],
                             bound_ms=la["gate_bound_ms"], bound_by=la["gate_bound_by"])
-    # B3 and B4 at 1024x768 in the smoothed bench step and CLI default
+    # B3 and B4 (the fused fold-and-scatter) at 1024x768 in the smoothed
+    # bench step and CLI default; the plain version is the transpose and the
+    # scatter
     for kernel, name, launches in (("voxel_grad", "bench_gaussian", gtrain_launches[2]),
                                    ("voxel_grad_shaded", "cli_default_gaussian", gtrain_launches[3])):
         g = gtraining[f"{name} {FULL_H}x{FULL_W}"]
-        rows[kernel] = dict(launches=launches, ms=g["scatter_ms"], plain_ms=g["plain_scatter_ms"],
-                            bound_ms=g["scatter_bound"][0], bound_by=g["scatter_bound"][1],
-                            library_ms=g["scatter_library_ms"],
-                            library="index_add_ of the precomputed corner indices and weights, "
-                                    "their computation excluded")
+        rows[kernel] = dict(launches=launches, ms=g["fold_ms"], plain_ms=g["plain_fold_ms"],
+                            bound_ms=g["fold_bound"][0], bound_by=g["fold_bound"][1],
+                            library_ms=g["fold_library_ms"],
+                            library="index_add_ of the nonzero folded entries' precomputed corner indices and "
+                                    "weights, their computation excluded")
     rows["slab_march"]["launches"] += gtrain_launches[0] + ctrain_launches[0]
     rows["slab_replay"]["launches"] += gtrain_launches[1] + ctrain_launches[1]
     rows["voxel_grad"]["launches"] += ctrain_launches[2]

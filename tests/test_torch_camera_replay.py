@@ -121,8 +121,7 @@ def test_replay_d_feats_match_tpu_kernels(inputs, monkeypatch, interp, shading, 
         else:
             want = slab_bwd_kernel.backward(pj, major, sign, vj_vol, vj_lut, vj_feats, fin, gc)[-1]
         if smooth and interp == "trilinear":
-            folded = slab_march.fold_smoothed(feats, res[0].clone(), vol.shape, p)
-            plain_dd = folded[:, 0] if shading else folded
+            plain_dd = slab.smooth_voxel_grad(feats, res[0], res[1], vol.shape, sign, p, want_folded=True)[2]
             b5 = slab.feats_grad(feats, vol, plain_dd, sign, p)
             b5_want = slab_bwd_kernel._run_feats_grad(
                 vj_feats, vj_vol, chunk(plain_dd)[:, :, None], bilinear=True, win_rows=0, sb=slab_kernel.SLAB_BATCH,

@@ -1,6 +1,7 @@
-"""The CUDA march, replay (with its camera chain), voxel-gradient scatter,
-plain-row camera chain and look-ahead gate kernels against their plain
-PyTorch versions, on the card.
+"""The CUDA march, replay (with its camera chain and its step range),
+voxel-gradient scatter (fused with the smoothing stencil's transpose, and
+without it), plain-row camera chain and look-ahead gate kernels against
+their plain PyTorch versions, on the card.
 
 Marked ``cuda``: these skip where ``torch.cuda.is_available()`` is false.
 Run them on a GPU machine with
@@ -277,27 +278,40 @@ def test_smooth_march_matches_plain_bitwise(scene256, h, v, interp, stream, shad
                                                  grad, u8))
 
 
+def _fold(feats, dd, vol_shape, p):
+    """The replay's per-step cotangents with the density channel folded onto
+    the plain rows (the stencil's transpose), the others as they are: what
+    the scatter without the fold takes."""
+    _, nr, nc = vol_shape
+    bilinear = p.interpolation.value == "trilinear"
+    if dd.dim() == 4:
+        return torch.cat([slab.smooth_dd_transpose(feats, dd[:, 0], nr, nc, bilinear)[:, None], dd[:, 1:]], dim=1)
+    return slab.smooth_dd_transpose(feats, dd, nr, nc, bilinear)
+
+
 @pytest.mark.parametrize("interp,stream,shading", SMOOTH_MODES)
 @pytest.mark.parametrize("h,v", ORBITS[:2])
 def test_smooth_replay_and_scatter_match_plain(scene256, h, v, interp, stream, shading):
     """B2 unfused against the plain replay from the residual and
-    re-sampled (the per-step cotangents by the repo rule, the two kernel
-    routes bit for bit: no atomics write them; d_lut by the two-group
-    rule), then B3 (unshaded) or B4 (shaded) against the plain scatter on
-    the folded cotangents, by the repo rule (atomics reorder the sums)."""
+    re-sampled (the per-step cotangents by the repo rule and the step range
+    bit for bit, the two kernel routes bit for bit: no atomics write them;
+    d_lut by the two-group rule), then B3 (unshaded) or B4 (shaded) without
+    the fold against the plain scatter on the folded cotangents, by the
+    repo rule (atomics reorder the sums)."""
     p, feats, vol, lut, sign, grad, u8 = _smooth_inputs(scene256, h, v, interp, stream, shading)
     img, dens = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, emit_density=True)
     g = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (H, W, 4)).astype(np.float32)).to(img.device)
-    want_dd, want_lut = slab.replay_slabs(feats, vol, lut, sign, p, img, g, grad, u8, dens)
+    want_dd, want_steps, want_lut = slab.replay_slabs(feats, vol, lut, sign, p, img, g, grad, u8, dens)
     got = {route: slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g, grad, u8, d)
            for route, d in (("stored", dens), ("re-sampled", None))}
     torch.cuda.synchronize()
-    for route, (dd, d_lut) in got.items():
+    for route, (dd, steps, d_lut) in got.items():
         parity.check_close(want_dd, dd, f"{route} dd")
         parity.check_lut_grad(want_lut, d_lut, lut, f"{route} d_lut")
+        assert torch.equal(want_steps, steps), f"{route} step range"
     assert torch.equal(got["stored"][0], got["re-sampled"][0])
     assert float(want_dd.abs().max()) > 0
-    dd = slab_march.fold_smoothed(feats, want_dd.clone(), vol.shape, p)
+    dd = _fold(feats, want_dd, vol.shape, p)
     before = (voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES)
     d_vol, d_grad = voxel_grad.scatter_cuda(feats, dd, vol.shape, sign, p)
     assert (voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES) == (before[0] + (not shading), before[1] + shading)
@@ -310,20 +324,61 @@ def test_smooth_replay_and_scatter_match_plain(scene256, h, v, interp, stream, s
         assert d_grad is None
 
 
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("shading", [False, True])
+@pytest.mark.parametrize("interp", ["nearest", "trilinear"])
+@pytest.mark.parametrize("h,v", ORBITS)
+def test_fold_scatter_matches_plain(scene256, h, v, interp, shading, folded):
+    """The fused fold-and-scatter (B3 unshaded, B4 shaded) against
+    ``slab.smooth_voxel_grad`` on the plain replay's cotangents and step
+    range, 256 planes: d_vol and d_grad by the repo rule (atomics reorder
+    the sums), the folded rows with one source an offset (1 <= k <= N-2)
+    bit for bit and the two end rows by the repo rule; with the rows cut
+    into the default chunks (``voxel_grad.fold_chunk``) and into chunks of
+    7 rows."""
+    p, feats, vol, lut, sign, grad, u8 = _smooth_inputs(scene256, h, v, interp, "u8", shading)
+    img = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8)
+    g = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (H, W, 4)).astype(np.float32)).to(img.device)
+    dd, steps, _ = slab.replay_slabs(feats, vol, lut, sign, p, img, g, grad, u8)
+    want_vol, want_grad, want_rows = slab.smooth_voxel_grad(feats, dd, steps, vol.shape, sign, p, want_folded=True)
+    assert float(want_vol.abs().max()) > 0
+    for chunk in (None, 7):
+        before = (voxel_grad.FOLD_LAUNCHES, voxel_grad.FOLD_SHADED_LAUNCHES)
+        d_vol, d_grad, rows = voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, folded, chunk)
+        torch.cuda.synchronize()
+        assert (voxel_grad.FOLD_LAUNCHES, voxel_grad.FOLD_SHADED_LAUNCHES) == (before[0] + (not shading),
+                                                                                before[1] + shading)
+        parity.check_close(want_vol, d_vol, f"chunk={chunk} d_vol")
+        if shading:
+            parity.check_close(want_grad, d_grad, f"chunk={chunk} d_grad")
+        else:
+            assert d_grad is None
+        if not folded:
+            assert rows is None
+            continue
+        assert torch.equal(want_rows[1:-1], rows[1:-1]), f"chunk={chunk}: folded rows differ"
+        parity.check_close(want_rows[[0, -1]], rows[[0, -1]], f"chunk={chunk} folded end rows")
+
+
 @pytest.mark.parametrize("shading", [False, True])
 def test_smooth_differentiable_renderer_counts_launches(scene256, device, shading):
-    """The training step under smoothing launches B1, B2 and B3 (or B4 when
-    shaded) once each, and its gradients agree with the plain step's."""
+    """The training step under smoothing launches B1, B2 and the fused
+    fold-and-scatter (B3, or B4 when shaded) once each, and not the scatter
+    without the fold, and its gradients agree with the plain step's."""
     p = _smooth_params("trilinear" if not shading else "nearest", "u8" if not shading else "f32", shading)
     vol = scene256.volume.clone().requires_grad_(True)
     lut = scene256.tf_lut.clone().requires_grad_(True)
     render = make_renderer(Scene(vol, scene256.importance, lut), p, H, W, backend="slab_cuda", device=device,
                            differentiable=True)
     cam = Camera(aspect=W / H).orbit(10.0, 5.0, 0.0).matrices()
-    counts = (slab_march.LAUNCHES, slab_replay.LAUNCHES, voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES)
+
+    def counts():
+        return (slab_march.LAUNCHES, slab_replay.LAUNCHES, voxel_grad.FOLD_LAUNCHES, voxel_grad.FOLD_SHADED_LAUNCHES,
+                voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES)
+
+    before = counts()
     render(cam).sum().backward()
-    now = (slab_march.LAUNCHES, slab_replay.LAUNCHES, voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES)
-    assert tuple(a - b for a, b in zip(now, counts)) == (1, 1, int(not shading), int(shading))
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, int(not shading), int(shading), 0, 0)
     plain_vol = scene256.volume.clone().requires_grad_(True)
     plain_lut = scene256.tf_lut.clone().requires_grad_(True)
     slab.render_diff(Scene(plain_vol, scene256.importance, plain_lut), cam, p, H, W).sum().backward()
@@ -352,6 +407,13 @@ def test_smoothing_kernels_check_inputs(scene256):
         voxel_grad.scatter_cuda(feats, dd[:, :3], vol.shape, sign, p)
     with pytest.raises(ValueError, match="on cpu"):
         voxel_grad.scatter_cuda(feats, dd.cpu(), vol.shape, sign, p)
+    steps = torch.zeros((2, H, W), dtype=torch.int32, device=vol.device)
+    with pytest.raises(ValueError, match="steps"):
+        voxel_grad.fold_scatter_cuda(feats, dd, steps.long(), vol.shape, sign, p)
+    with pytest.raises(ValueError, match="steps"):
+        voxel_grad.fold_scatter_cuda(feats, dd, steps[:, :-1], vol.shape, sign, p)
+    with pytest.raises(ValueError, match="dd"):
+        voxel_grad.fold_scatter_cuda(feats, dd[:, :3], steps, vol.shape, sign, p)
 
 
 #: camera gradients: (interpolation, shading, smoothing), every mode
@@ -390,9 +452,10 @@ def test_camera_replay_and_feats_grad_match_plain(scene, scene256, h, v, interp,
     parity.check_lut_grad(want[-2], got[-2], lut, "d_lut")
     assert float(want[-1].abs().max()) > 0
     parity.check_close(want[-1], got[-1], "d_feats")
+    if smooth:
+        assert torch.equal(want[1], got[1]), "step range"
     if smooth and interp == "trilinear":
-        folded = slab_march.fold_smoothed(feats, want[0].clone(), vol.shape, p)
-        plain_dd = folded[:, 0] if shading else folded
+        plain_dd = slab.smooth_voxel_grad(feats, want[0], want[1], vol.shape, sign, p, want_folded=True)[2]
         before = feats_grad.LAUNCHES
         b5 = feats_grad.feats_grad_cuda(feats, vol, plain_dd, sign, p)
         assert feats_grad.LAUNCHES == before + 1
@@ -421,7 +484,7 @@ def test_camera_differentiable_renderer_counts_launches(scene256, device, interp
                                                   "position": cam.position.grad, "view": cam.view.grad}
 
     def counts():
-        return (slab_march.LAUNCHES, slab_replay.LAUNCHES, voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES,
+        return (slab_march.LAUNCHES, slab_replay.LAUNCHES, voxel_grad.FOLD_LAUNCHES, voxel_grad.FOLD_SHADED_LAUNCHES,
                 feats_grad.LAUNCHES)
 
     before = counts()

@@ -98,11 +98,11 @@ def test_smoothed_replay_stored_and_resampled_bitwise(scene, interp, stream, sha
     img, dens = slab.march_slabs(feats, vol, lut, sign, p, grad, u8, emit_density=True)
     assert torch.equal(img, slab.march_slabs(feats, vol, lut, sign, p, grad, u8))
     g = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (H, W, 4)).astype(np.float32))
-    dd_s, lut_s = slab.replay_slabs(feats, vol, lut, sign, p, img, g, grad, u8, dens)
-    dd_r, lut_r = slab.replay_slabs(feats, vol, lut, sign, p, img, g, grad, u8)
+    dd_s, steps_s, lut_s = slab.replay_slabs(feats, vol, lut, sign, p, img, g, grad, u8, dens)
+    dd_r, steps_r, lut_r = slab.replay_slabs(feats, vol, lut, sign, p, img, g, grad, u8)
     n = vol.shape[0]
     assert tuple(dd_s.shape) == ((n, 4, H, W) if shading else (n, H, W))
-    assert torch.equal(dd_s, dd_r) and torch.equal(lut_s, lut_r)
+    assert torch.equal(dd_s, dd_r) and torch.equal(lut_s, lut_r) and torch.equal(steps_s, steps_r)
     assert float(dd_s.abs().max()) > 0
     smooth = slab.smoothed_densities(feats, vol, sign, p)
     d0 = dens[:, 0] if shading else dens
@@ -156,8 +156,9 @@ def test_smoothed_backward_matches_autograd_of_the_plain_march(interp, side):
     g = torch.from_numpy(rng.uniform(-1.0, 1.0, (H, W, 4)).astype(np.float32))
     img = slab.march_slabs(feats, vp, lut, sign, p)
     (img * g).sum().backward()
-    dd, d_lut = slab.replay_slabs(feats, vol_perm, lut.detach(), sign, p, img.detach(), g)
-    d_vp, _, _ = slab_march.smooth_backward(feats, dd, vol_perm, sign, p, slab.voxel_grad, slab.feats_grad)
+    dd, steps, d_lut = slab.replay_slabs(feats, vol_perm, lut.detach(), sign, p, img.detach(), g)
+    d_vp, _, _ = slab_march.smooth_backward(feats, dd, steps, vol_perm, sign, p, slab.smooth_voxel_grad,
+                                            slab.feats_grad)
     parity.check_close(vp.grad, d_vp, "d_vol")
     parity.check_close(lut.grad, d_lut, "d_lut")
 

@@ -15,7 +15,7 @@ import torch
 
 from volym_tpu_torch.camera import CameraMatrices
 from volym_tpu_torch.config import RenderParams
-from volym_tpu_torch.scene import Scene
+from volym_tpu_torch.scene import Scene, u8_record
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -23,19 +23,22 @@ def _f32(a, device) -> torch.Tensor:
 
 
 def scene(volume, importance, tf_lut, device="cpu") -> Scene:
-    """A :class:`Scene` from float32 arrays.  ``volume_u8`` is set when the
-    volume is exactly u8-representable (``round(v*255)/255 == v``), which
-    is the contract of the JAX package's ``u8_volume`` path."""
+    """A :class:`Scene` from float32 arrays.  ``volume_u8`` (with its
+    record, :func:`volym_tpu_torch.scene.u8_record`) is set when the volume
+    is exactly u8-representable (``round(v*255)/255 == v``), which is the
+    contract of the JAX package's ``u8_volume`` path."""
     vol = np.asarray(volume, dtype=np.float32)
     q = np.round(vol * np.float32(255.0))
+    volume_t = _f32(vol, device)
     u8 = None
     if q.min() >= 0 and q.max() <= 255 and np.array_equal(q.astype(np.float32) / np.float32(255.0), vol):
         u8 = torch.as_tensor(q.astype(np.uint8), device=device)
     return Scene(
-        volume=_f32(vol, device),
+        volume=volume_t,
         importance=_f32(importance, device),
         tf_lut=_f32(tf_lut, device),
         volume_u8=u8,
+        u8_source=None if u8 is None else u8_record(volume_t, u8),
     )
 
 

@@ -50,9 +50,13 @@
 // scattered at the step's own coordinates: the kernel writes it, and the
 // gradient-field cotangents when shaded, into dd (n, 1 or 4, H, W) at
 // (j, ray), rays fastest, and scatters nothing into d_vol or d_grad.  The
-// stencil's transpose and the scatters of voxel_grad.cu (B3, B4) take dd
-// from there.  d_lut stays here.  Steps that composite nothing keep the
-// wrapper's zero-fill.
+// fused fold-and-scatter of voxel_grad.cu (B3, B4) takes dd from there.
+// d_lut stays here.  Steps that composite nothing keep the wrapper's
+// zero-fill.  The kernel also writes each ray's step range, steps (2, H, W)
+// int32: the first and the last step at which it writes a cotangent (n and
+// -1 for a ray with none), so that the fold walks only those steps and
+// their stencil halo instead of every zero of dd.  Bookkeeping only: the
+// arithmetic is unchanged.
 //
 // Camera cotangents (CAM; _replay_step_body :817-892): the kernel also
 // accumulates d_feats, the cotangent of the ray's table, in registers over
@@ -92,8 +96,8 @@ __device__ __forceinline__ void replay_ray(
     const float* __restrict__ f, const void* __restrict__ vol_, const float* __restrict__ grad,
     const float* __restrict__ s_lut, const float* __restrict__ dens, float4 fin, float4 g,
     float* __restrict__ d_vol, float* __restrict__ d_grad, float* __restrict__ s_dlut, float* __restrict__ dd,
-    float* __restrict__ df, size_t n_rays, size_t r, int n, int nr, int nc, int ln, int sign, int subtexel,
-    float threshold, float early_alpha, float tf_scale) {
+    int* __restrict__ steps, float* __restrict__ df, size_t n_rays, size_t r, int n, int nr, int nc, int ln,
+    int sign, int subtexel, float threshold, float early_alpha, float tf_scale) {
     static_assert(!(CAM && (U8 || STORED)), "camera cotangents read the f32 slices");
     constexpr bool COORD = CAM && BILINEAR;  // the coordinates' chain (box hats have none)
     using T = typename std::conditional<U8, uint8_t, float>::type;
@@ -101,9 +105,17 @@ __device__ __forceinline__ void replay_ray(
     constexpr int DW = SHADING ? 4 : 1;
 
     const float entry = f[F_ENTRY * n_rays], exit_ = f[F_EXIT * n_rays];
+    // the first and last step with a written cotangent (SMOOTH)
+    int first = n, last = -1;
     // a ray that misses the box or fails the sign flag composites nothing:
     // its cotangents are zero whatever fin and g hold there
-    if (exit_ <= entry || !(f[F_SIGNOK * n_rays] > 0.5f)) return;
+    if (exit_ <= entry || !(f[F_SIGNOK * n_rays] > 0.5f)) {
+        if (SMOOTH) {
+            steps[r] = first;
+            steps[n_rays + r] = last;
+        }
+        return;
+    }
     const float rs = f[F_RS * n_rays], rb = f[F_RB * n_rays];
     const float cs = f[F_CS * n_rays], cb = f[F_CB * n_rays];
     const float ts = f[F_TS * n_rays], tb = f[F_TB * n_rays];
@@ -248,6 +260,8 @@ __device__ __forceinline__ void replay_ray(
                 ddj[n_rays] = d_gx;
                 ddj[2 * n_rays] = d_gy;
                 ddj[3 * n_rays] = d_gz;
+                first = min(first, j);
+                last = j;
             } else {
                 scatter<BILINEAR>(d_grad + k * slice, rows, cols, nr, nc, d_gx);
                 scatter<BILINEAR>(d_grad + ((size_t)n + k) * slice, rows, cols, nr, nc, d_gy);
@@ -271,6 +285,8 @@ __device__ __forceinline__ void replay_ray(
         if (tf_in) {
             if (SMOOTH) {
                 ddj[0] = d_c * tf_scale;
+                first = min(first, j);
+                last = j;
             } else {
                 scatter<BILINEAR>(d_vol + k * slice, rows, cols, nr, nc, d_c * tf_scale);
             }
@@ -299,6 +315,10 @@ __device__ __forceinline__ void replay_ray(
                 if (SMOOTH) a_ts = a_ts + ddv * smooth_density_dts(win.d, j, rs, rb, cs, cb, ts, n, nr, nc);
             }
         }
+    }
+    if (SMOOTH) {
+        steps[r] = first;
+        steps[n_rays + r] = last;
     }
     if (CAM) {
         df[F_AEXP * n_rays] = a_aexp;
@@ -330,6 +350,7 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
     float* __restrict__ d_grad,       // (3, n, nr, nc) when SHADING, zero-filled
     float* __restrict__ d_lut,        // (ln, 4), zero-filled
     float* __restrict__ dd,           // (n, SHADING ? 4 : 1, H, W) when SMOOTH, zero-filled
+    int* __restrict__ steps,          // (2, H, W) when SMOOTH: first and last written step
     float* __restrict__ d_feats,      // (N_FEATURES, H, W) when CAM, zero-filled
     int height, int width, int n, int nr, int nc, int ln, int sign, int subtexel,
     float threshold, float early_alpha, float tf_scale) {
@@ -352,8 +373,8 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
         const float4 fo = reinterpret_cast<const float4*>(fin)[r];
         const float4 go = reinterpret_cast<const float4*>(gimg)[r];
         replay_ray<BILINEAR, U8, SHADING, STORED, SMOOTH, CAM>(
-            feats + r, vol, grad, s_lut, dens, fo, go, d_vol, d_grad, s_dlut, dd, CAM ? d_feats + r : nullptr, n_rays,
-            r, n, nr, nc, ln, sign, subtexel, threshold, early_alpha, tf_scale);
+            feats + r, vol, grad, s_lut, dens, fo, go, d_vol, d_grad, s_dlut, dd, steps, CAM ? d_feats + r : nullptr,
+            n_rays, r, n, nr, nc, ln, sign, subtexel, threshold, early_alpha, tf_scale);
     }
     __syncthreads();
     for (int i = tid; i < ln * 4; i += nthreads) {
@@ -365,14 +386,14 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
 template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH, bool CAM = false>
 void launch(const float* feats, const void* vol, const float* grad, const float* lut,
             const float* dens, const float* fin, const float* gimg, float* d_vol, float* d_grad,
-            float* d_lut, float* dd, float* d_feats, int height, int width, int n, int nr, int nc, int ln,
-            int sign, int subtexel, float threshold, float early_alpha, float tf_scale, cudaStream_t stream) {
+            float* d_lut, float* dd, int* steps, float* d_feats, int height, int width, int n, int nr, int nc,
+            int ln, int sign, int subtexel, float threshold, float early_alpha, float tf_scale, cudaStream_t stream) {
     const dim3 block(TILE_X, TILE_Y);
     const dim3 grid((width + TILE_X - 1) / TILE_X, (height + TILE_Y - 1) / TILE_Y);
     const size_t smem = (size_t)ln * 8 * sizeof(float);
     slab_replay_kernel<BILINEAR, U8, SHADING, STORED, SMOOTH, CAM><<<grid, block, smem, stream>>>(
-        feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, dd, d_feats, height, width, n, nr, nc,
-        ln, sign, subtexel, threshold, early_alpha, tf_scale);
+        feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, dd, steps, d_feats, height, width, n, nr,
+        nc, ln, sign, subtexel, threshold, early_alpha, tf_scale);
 }
 
 }  // namespace
@@ -380,18 +401,18 @@ void launch(const float* feats, const void* vol, const float* grad, const float*
 // C entry for ctypes: launches on `stream` and returns cudaGetLastError().
 // `grad` may be NULL when stored or unshaded, `dens` unless stored,
 // `d_vol` and `d_grad` when smoothing (and `d_grad` unless shaded), `dd`
-// unless smoothing, and `d_feats` unless `camera` (which takes neither
-// `u8` nor `stored`).
+// and `steps` unless smoothing, and `d_feats` unless `camera` (which takes
+// neither `u8` nor `stored`).
 extern "C" int slab_replay_launch(const float* feats, const void* vol, const float* grad,
                                   const float* lut, const float* dens, const float* fin,
                                   const float* gimg, float* d_vol, float* d_grad, float* d_lut,
-                                  float* dd, float* d_feats, int height, int width, int n, int nr, int nc,
-                                  int ln, int sign, int subtexel, int bilinear, int u8, int shading,
+                                  float* dd, int* steps, float* d_feats, int height, int width, int n, int nr,
+                                  int nc, int ln, int sign, int subtexel, int bilinear, int u8, int shading,
                                   int stored, int smooth, int camera, float threshold, float early_alpha,
                                   float tf_scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define VOLYM_LAUNCH_C(B, U, S, D, G, C)                                                               \
-    launch<B, U, S, D, G, C>(feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, dd, d_feats, \
+    launch<B, U, S, D, G, C>(feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, dd, steps, d_feats, \
                              height, width, n, nr, nc, ln, sign, subtexel, threshold, early_alpha, tf_scale, s)
 #define VOLYM_LAUNCH(B, U, S, D, G) VOLYM_LAUNCH_C(B, U, S, D, G, false)
 #define VOLYM_LAUNCH_G(B, U, S, D)        \

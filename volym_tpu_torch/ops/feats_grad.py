@@ -6,9 +6,9 @@ Counterpart of the TPU backward's pass 2b, ``_feats_grad_kernel`` (B5) of
 Gaussian smoothing with camera gradients and trilinear sampling, a
 smoothed step's density mixes the plain rows of later steps, so the
 coordinate chain of each plain row runs after the replay
-(:mod:`volym_tpu_torch.ops.slab_replay`) and the stencil's transpose
-(:func:`volym_tpu_torch.render.slab.smooth_dd_transpose`), from the folded
-cotangents.  The TPU contracts a hat and a hat-derivative matrix per step
+(:mod:`volym_tpu_torch.ops.slab_replay`) and the stencil's transpose, from
+the folded cotangents that the fused fold-and-scatter
+(:func:`volym_tpu_torch.ops.voxel_grad.fold_scatter_cuda`) writes.  The TPU contracts a hat and a hat-derivative matrix per step
 on the MXU over an inverted grid with an aliased accumulator; the CUDA
 kernel (``csrc/feats_grad.cu``) runs one thread per ray over the march
 steps and writes its four table rows once.

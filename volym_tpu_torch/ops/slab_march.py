@@ -268,17 +268,31 @@ def lookahead_inputs(scene, camera_matrices, params: RenderParams, height: int, 
     return cone_feats, slab_mod.importance_levels(imp_perm)
 
 
+def quantize_u8(volume: torch.Tensor) -> torch.Tensor:
+    """The uint8 grid of a [0, 1] volume, ``round(volume * 255)`` (half to
+    even, as ``jnp.round``), clamped to [0, 255]."""
+    return torch.round(volume * 255.0).clamp_(0.0, 255.0).to(torch.uint8)
+
+
+def u8_grid(scene) -> torch.Tensor:
+    """The uint8 grid the u8 march streams: the scene's own copy while it is
+    current (:meth:`Scene.current_volume_u8`: one byte a voxel, no rounding
+    a frame), else :func:`quantize_u8` of ``scene.volume`` as it stands, as
+    the JAX package derives it on every frame (``slab_kernel.py:1378-1386``)."""
+    grid = scene.current_volume_u8()
+    return grid if grid is not None else quantize_u8(scene.volume.detach())
+
+
 def prepare(scene, camera_matrices, params: RenderParams, height: int, width: int):
     """The forward march's inputs for one frame: ``(feats, vol_perm, lut,
     sign, grad_perm, u8)`` on the scene's device.  Forward only: camera
     cotangents are moot, so ``camera_grads`` does not veto the u8 stream
-    (``slab_kernel.render`` clears it the same way)."""
+    (``slab_kernel.render`` clears it the same way).  The u8 stream reads
+    :func:`u8_grid`."""
     check_supported(params)
     major, sign, planes, u8 = _layout(scene, camera_matrices, params.replace(camera_grads=False))
     if u8:
-        if scene.volume_u8 is None:
-            raise ValueError("u8_volume needs a scene with a uint8 volume (Scene.from_uint8)")
-        vol_perm = slab_mod.permute_volume(scene.volume_u8, major)
+        vol_perm = slab_mod.permute_volume(u8_grid(scene), major)
     else:
         vol_perm = slab_mod.slab_resample(slab_mod.permute_volume(scene.volume, major), planes)
     grad_perm = _gradient_perm(scene.volume, major, planes) if params.use_shading else None
@@ -315,38 +329,25 @@ def check_differentiable(params: RenderParams) -> None:
         )
 
 
-def fold_smoothed(feats, dd, vol_shape, params: RenderParams):
-    """The replay's per-step cotangents under Gaussian smoothing
-    (:func:`slab.replay_slabs`) -> the cotangents of the plain samples: the
-    density channel goes through the stencil's transpose
-    (:func:`slab.smooth_dd_transpose`) onto the plain rows; the
-    gradient-field channels pass as they are (the field is sampled at each
-    step's own coordinates; ``slab_bwd_kernel.py:1684-1691``).  A
-    4-channel ``dd`` is updated in place."""
-    _, nr, nc = vol_shape
-    bilinear = params.interpolation == Interpolation.TRILINEAR
-    if dd.dim() == 4:
-        dd[:, 0] = slab_mod.smooth_dd_transpose(feats, dd[:, 0], nr, nc, bilinear)
-        return dd
-    return slab_mod.smooth_dd_transpose(feats, dd, nr, nc, bilinear)
-
-
 def smooth_backward(
-    feats, dd, vol, sign, params: RenderParams, scatter_fn=voxel_grad.scatter, feats_grad_fn=feats_grad.feats_grad
+    feats, dd, steps, vol, sign, params: RenderParams, scatter_fn=voxel_grad.smooth_scatter,
+    feats_grad_fn=feats_grad.feats_grad,
 ):
-    """The backward after the replay under Gaussian smoothing: ``dd`` ->
-    ``(d_vol, d_grad, d_feats)``, :func:`fold_smoothed` and then
-    ``scatter_fn`` (default :func:`voxel_grad.scatter`: B3, or B4 when
-    shaded, on a GPU).  With camera gradients and trilinear sampling,
-    ``feats_grad_fn`` (default :func:`feats_grad.feats_grad`: B5 on a GPU)
-    adds the plain rows' camera chain from the folded density channel and
-    ``vol``, the f32 volume as marched; otherwise ``d_feats`` is None (box
-    hats have no coordinate derivative, ``slab_bwd_kernel.py:1789``)."""
-    folded = fold_smoothed(feats, dd, vol.shape, params)
-    d_vol, d_grad = scatter_fn(feats, folded, vol.shape, sign, params)
-    d_feats = None
-    if params.camera_grads and params.interpolation == Interpolation.TRILINEAR:
-        d_feats = feats_grad_fn(feats, vol, folded[:, 0] if folded.dim() == 4 else folded, sign, params)
+    """The backward after the replay under Gaussian smoothing: ``dd`` and
+    its per-ray step range ``steps`` -> ``(d_vol, d_grad, d_feats)``.
+    ``scatter_fn`` (default :func:`voxel_grad.smooth_scatter`: the fused
+    fold-and-scatter kernel on a GPU, the plain
+    :func:`slab.smooth_voxel_grad` on the CPU) moves the density channel
+    through the stencil's transpose onto the plain rows and scatters every
+    channel.  With camera gradients and trilinear sampling it also returns
+    the folded density rows, from which ``feats_grad_fn`` (default
+    :func:`feats_grad.feats_grad`: B5 on a GPU) adds the plain rows' camera
+    chain with ``vol``, the f32 volume as marched; otherwise ``d_feats`` is
+    None (box hats have no coordinate derivative,
+    ``slab_bwd_kernel.py:1789``)."""
+    chain = params.camera_grads and params.interpolation == Interpolation.TRILINEAR
+    d_vol, d_grad, folded = scatter_fn(feats, dd, steps, vol.shape, sign, params, chain)
+    d_feats = feats_grad_fn(feats, vol, folded, sign, params) if chain else None
     return d_vol, d_grad, d_feats
 
 
@@ -359,14 +360,15 @@ class DiffMarch(torch.autograd.Function):
     with its fused voxel scatter (B2), into d ``vol_perm``, d ``lut`` and,
     shaded, d ``grad_perm``, and with ``camera_grads`` into d ``feats``
     (B2's camera chain).  Under Gaussian smoothing the replay writes its
-    per-step cotangents instead, and :func:`smooth_backward` folds and
-    scatters them (the stencil's transpose, then B3 or B4) and, for camera
-    gradients with trilinear sampling, adds the plain rows' chain (B5).  In
-    the u8 domain the march reads ``round(vol_perm * 255)`` as uint8 and
-    the d/d(scaled density) is multiplied by 255.  The march, the replay,
-    the scatter and the plain rows' chain are ``march_fn``, ``replay_fn``,
+    per-step cotangents and their per-ray step range instead, and
+    :func:`smooth_backward` folds and scatters them (the stencil's
+    transpose fused into B3 or B4 on a GPU) and, for camera gradients with
+    trilinear sampling, adds the plain rows' chain (B5).  In the u8 domain
+    the march reads ``round(vol_perm * 255)`` as uint8 and the d/d(scaled
+    density) is multiplied by 255.  The march, the replay, the smoothed
+    scatter and the plain rows' chain are ``march_fn``, ``replay_fn``,
     ``scatter_fn`` and ``feats_grad_fn`` (:func:`march`,
-    :func:`slab_replay.replay`, :func:`voxel_grad.scatter` and
+    :func:`slab_replay.replay`, :func:`voxel_grad.smooth_scatter` and
     :func:`feats_grad.feats_grad` dispatch on the tensors' device).
     """
 
@@ -374,7 +376,7 @@ class DiffMarch(torch.autograd.Function):
     def forward(ctx, vol_perm, lut, grad_perm, feats, sign, params, u8, march_fn, replay_fn, scatter_fn,
                 feats_grad_fn):
         if u8:
-            vol = torch.round(vol_perm * 255.0).clamp_(0.0, 255.0).to(torch.uint8).contiguous()
+            vol = quantize_u8(vol_perm).contiguous()
         else:
             vol = vol_perm.contiguous()
         lut = lut.contiguous()
@@ -396,8 +398,8 @@ class DiffMarch(torch.autograd.Function):
         if params.camera_grads:
             *res, d_feats = res
         if params.use_gaussian_smoothing:
-            dd, d_lut = res
-            d_vol, d_grad, d_plain = smooth_backward(feats, dd, vol, ctx.sign, params, ctx.scatter_fn,
+            dd, steps, d_lut = res
+            d_vol, d_grad, d_plain = smooth_backward(feats, dd, steps, vol, ctx.sign, params, ctx.scatter_fn,
                                                      ctx.feats_grad_fn)
             if d_plain is not None:
                 d_feats = d_feats + d_plain
@@ -410,7 +412,7 @@ class DiffMarch(torch.autograd.Function):
 
 def render_diff(
     scene, camera_matrices, params: RenderParams, height: int, width: int, march_fn=march,
-    replay_fn=slab_replay.replay, scatter_fn=voxel_grad.scatter, feats_grad_fn=feats_grad.feats_grad,
+    replay_fn=slab_replay.replay, scatter_fn=voxel_grad.smooth_scatter, feats_grad_fn=feats_grad.feats_grad,
 ):
     """Differentiable slab render -> (H, W, 4) on the scene's device, the
     counterpart of ``slab_kernel.render_diff``.  Gradients reach

@@ -10,8 +10,9 @@ scatter (passes 1 and 2) when its VMEM cannot hold the fused layout and
 under Gaussian smoothing; one thread per ray scatters with atomics and
 needs no second pass for VMEM's sake, but under smoothing a step's
 cotangent belongs to the smoothed density, so the kernel writes the
-per-step cotangents (the TPU's unfused ``dd`` output) for the stencil's
-transpose and the scatters of :mod:`volym_tpu_torch.ops.voxel_grad`.
+per-step cotangents (the TPU's unfused ``dd`` output) and each ray's step
+range for the fused fold-and-scatter of
+:mod:`volym_tpu_torch.ops.voxel_grad`.
 
 :func:`replay` dispatches on the device of its tensors: CPU tensors go to
 the plain version :func:`volym_tpu_torch.render.slab.replay_slabs`; CUDA
@@ -62,7 +63,7 @@ def _library():
         p = ctypes.c_void_p
         i = ctypes.c_int
         f = ctypes.c_float
-        fn.argtypes = [p] * 12 + [i] * 14 + [f, f, f, p]
+        fn.argtypes = [p] * 13 + [i] * 14 + [f, f, f, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -80,8 +81,9 @@ def replay_cuda(
     dens: torch.Tensor | None = None,
 ):
     """Launch the CUDA replay kernel; same arguments and result as
-    :func:`slab.replay_slabs` (``(dd, d_lut)`` under Gaussian smoothing,
-    ``dd`` zero-filled here; with ``params.camera_grads`` a last
+    :func:`slab.replay_slabs` (``(dd, steps, d_lut)`` under Gaussian
+    smoothing, ``dd`` zero-filled here and ``steps`` written by the kernel
+    for every ray; with ``params.camera_grads`` a last
     ``d_feats``, zero-filled here, which the kernel's camera mode
     accumulates one ray a thread, without atomics).  The summation order
     of its atomics, and so the last bits of ``d_vol``, ``d_grad`` and
@@ -130,9 +132,10 @@ def replay_cuda(
         slab_mod.check_smooth_planes(n)
     threshold, early_alpha, dscale = slab_mod.march_knobs(params, u8)
     tf_scale = float(ln) * (dscale if dscale else 1.0)
-    d_vol = d_grad = dd = None
+    d_vol = d_grad = dd = steps = None
     if smooth:
         dd = torch.zeros((n, 4, height, width) if shading else (n, height, width), dtype=torch.float32, device=dev)
+        steps = torch.empty((2, height, width), dtype=torch.int32, device=dev)
     else:
         d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dev)
         d_grad = torch.zeros((3, n, nr, nc), dtype=torch.float32, device=dev) if shading else None
@@ -147,7 +150,7 @@ def replay_cuda(
         rc = fn(
             feats.data_ptr(), vol_perm.data_ptr(), ptr(grad_perm) if (shading and not stored) else None,
             lut.data_ptr(), ptr(dens), out.data_ptr(), g_img.data_ptr(),
-            ptr(d_vol), ptr(d_grad), d_lut.data_ptr(), ptr(dd), ptr(d_feats),
+            ptr(d_vol), ptr(d_grad), d_lut.data_ptr(), ptr(dd), ptr(steps), ptr(d_feats),
             height, width, n, nr, nc, ln, int(sign), int(params.subtexel_bits),
             int(params.interpolation == Interpolation.TRILINEAR), int(u8), int(shading), int(stored), int(smooth),
             int(camera), threshold, early_alpha, tf_scale,
@@ -156,7 +159,7 @@ def replay_cuda(
     if rc != 0:
         raise RuntimeError(f"slab_replay kernel launch failed with CUDA error {rc}")
     LAUNCHES += 1
-    res = (dd, d_lut) if smooth else (d_vol, d_grad, d_lut)
+    res = (dd, steps, d_lut) if smooth else (d_vol, d_grad, d_lut)
     return (*res, d_feats) if camera else res
 
 

@@ -40,9 +40,9 @@ def make_renderer(
     on them) through the replay's camera chain.  Gaussian smoothing
     (``use_gaussian_smoothing``, on by default as in the reference) runs
     forward and backward, the latter through the replay, the stencil's
-    transpose, the voxel-gradient scatters and, for camera gradients with
-    trilinear sampling, the plain rows' camera chain (the CUDA kernels
-    with "slab_cuda").  Importance look-ahead (``use_importance_rendering``,
+    transpose and the voxel-gradient scatters (one fused kernel with
+    "slab_cuda") and, for camera gradients with trilinear sampling, the
+    plain rows' camera chain (the CUDA kernels with "slab_cuda").  Importance look-ahead (``use_importance_rendering``,
     straight or ``use_cone_importance_check``) gates the forward render with
     the look-ahead gate (the CUDA gate kernels with "slab_cuda").  Render
     modes that are not ported (importance coloring, first-hit, and
@@ -61,9 +61,9 @@ def make_renderer(
         if not torch.cuda.is_available():
             raise RuntimeError("backend 'slab_cuda' needs CUDA, and torch.cuda.is_available() is False")
         # CUDA tensors: the kernels
-        fns = slab_march.march, slab_replay.replay, voxel_grad.scatter, feats_grad.feats_grad, lookahead.gate
+        fns = slab_march.march, slab_replay.replay, voxel_grad.smooth_scatter, feats_grad.feats_grad, lookahead.gate
     else:
-        fns = slab.march_slabs, slab.replay_slabs, slab.voxel_grad, slab.feats_grad, slab.lookahead_gate
+        fns = slab.march_slabs, slab.replay_slabs, slab.smooth_voxel_grad, slab.feats_grad, slab.lookahead_gate
     march_fn, replay_fn, scatter_fn, feats_grad_fn, gate_fn = fns
     scene = scene.to(device)
 

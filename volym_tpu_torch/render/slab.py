@@ -20,8 +20,9 @@ CUDA replay backward (:mod:`volym_tpu_torch.ops.slab_replay`),
 CUDA camera chain of the plain rows (:mod:`volym_tpu_torch.ops.feats_grad`),
 and :func:`lookahead_gate` that of the CUDA look-ahead gate
 (:mod:`volym_tpu_torch.ops.lookahead`).
-:func:`smooth_dd_transpose`, the smoothing stencil's transpose, has no
-kernel: it runs as written on every device.
+:func:`smooth_voxel_grad` (the stencil's transpose
+:func:`smooth_dd_transpose`, then :func:`voxel_grad`) is that of the fused
+fold-and-scatter kernel the smoothed backward runs on the GPU.
 
 Rays whose dominant-axis direction component opposes the camera forward
 axis (possible at extreme fov) render as (0, 0, 0, 0), as in the JAX package.
@@ -570,6 +571,32 @@ def voxel_grad(feats: torch.Tensor, dd: torch.Tensor, vol_shape, sign: int, para
     return d_vol, d_grad
 
 
+def smooth_voxel_grad(feats: torch.Tensor, dd: torch.Tensor, steps, vol_shape, sign: int, params: RenderParams,
+                      want_folded: bool = False):
+    """The backward's scatter under Gaussian smoothing: the replay's
+    per-step cotangents -> ``(d_vol, d_grad, folded)``.  The plain version
+    of the fused fold-and-scatter kernel (``ops/csrc/voxel_grad.cu``,
+    ``FOLD``), the redesigned B3 (``dd`` (N, H, W)) and B4 (``dd`` (N, 4, H,
+    W)).
+
+    The density channel goes through the stencil's transpose
+    (:func:`smooth_dd_transpose`) onto the plain rows; the gradient-field
+    channels pass as they are (the field is sampled at each step's own
+    coordinates, ``slab_bwd_kernel.py:1684-1691``); then :func:`voxel_grad`
+    scatters them.  ``folded``, the (N, H, W) plain-row density cotangents
+    that the plain rows' camera chain (:func:`feats_grad`) reads, is
+    returned when ``want_folded``, else None.  ``steps``, the replay's
+    per-ray step range, can only skip zeros: it is not read here.  ``dd``
+    is not modified."""
+    _, nr, nc = vol_shape
+    shaded = dd.dim() == 4
+    folded = smooth_dd_transpose(feats, dd[:, 0] if shaded else dd, nr, nc,
+                                 params.interpolation == Interpolation.TRILINEAR)
+    plain = torch.cat([folded[:, None], dd[:, 1:]], dim=1) if shaded else folded
+    d_vol, d_grad = voxel_grad(feats, plain, vol_shape, sign, params)
+    return d_vol, d_grad, folded if want_folded else None
+
+
 def lookahead_gate(
     feats: torch.Tensor, cone_feats: torch.Tensor | None, levels: torch.Tensor, sign: int, subtexel: int
 ) -> torch.Tensor:
@@ -780,12 +807,15 @@ def replay_slabs(
     Under Gaussian smoothing the replay cannot scatter: a step's density
     cotangent belongs to its smoothed density, a stencil over the plain
     rows.  It then replays the smoothed density (stored, or re-sampled
-    through :func:`smoothed_densities`) and returns ``(dd, d_lut)``, the
-    TPU replay's unfused output: ``dd`` (N, H, W) holds each step's
+    through :func:`smoothed_densities`) and returns ``(dd, steps, d_lut)``:
+    ``dd``, the TPU replay's unfused output, (N, H, W) holds each step's
     smoothed-density cotangent in march order, or (N, 4, H, W) when shaded
     with the gradient-field cotangent in rows 1..3, and exactly 0.0 at the
-    steps that composite nothing.  :func:`smooth_dd_transpose` and
-    :func:`voxel_grad` take it from there.
+    steps that composite nothing; ``steps`` (2, H, W) int32 holds the first
+    and the last march step of each ray at which the replay writes a
+    cotangent (a composited step whose TF coordinate lies inside the LUT,
+    or that is lit when shaded), ``(N, -1)`` for a ray with none, so ``dd``
+    is 0.0 outside them.  :func:`smooth_voxel_grad` takes it from there.
 
     With ``params.camera_grads`` the result gains ``d_feats`` (N_FEATURES,
     H, W), the cotangent of the per-ray table (``_replay_step_body``
@@ -833,6 +863,8 @@ def replay_slabs(
     dev = f.device
     if smoothing:
         dd_out = torch.zeros((n, 4 if shading else 1, n_rays), dtype=torch.float32, device=dev)
+        first = torch.full((n_rays,), n, dtype=torch.int32, device=dev)
+        last = torch.full((n_rays,), -1, dtype=torch.int32, device=dev)
     else:
         d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dev)
         d_grad = torch.zeros((3, n, nr, nc), dtype=torch.float32, device=dev) if shading else None
@@ -910,9 +942,13 @@ def replay_slabs(
         d_lut.index_add_(0, i1, d_rgba * fr[:, None])
         slope = torch.where((fr > 0.0)[:, None], lut[i1] - lut[i0], 0.0)
         dd = (d_rgba * slope).sum(-1) * tf_scale
-        dd = dd * ((c_raw > 0.0) & (c_raw < ln - 1.0)).float()
+        tf_in = (fr > 0.0) & (c_raw > 0.0) & (c_raw < ln - 1.0)
+        dd = dd * tf_in.float()
         if smoothing:
             dd_out[j, 0] = dd
+            written = (mf > 0.0) & (tf_in | nonzero[:, 0]) if shading else (mf > 0.0) & tf_in
+            first = torch.where(written & (first == n), j, first)
+            last = torch.where(written, j, last)
         else:
             _scatter_sample(d_vol[k], rows_c, cols_c, dd, bilinear)
         if not camera:
@@ -934,7 +970,8 @@ def replay_slabs(
     height, width = out.shape[:2]
     extra = (d_feats.reshape(N_FEATURES, height, width),) if camera else ()
     if smoothing:
-        return (dd_out.reshape(n, 4, height, width) if shading else dd_out.reshape(n, height, width)), d_lut, *extra
+        dd_out = dd_out.reshape(n, 4, height, width) if shading else dd_out.reshape(n, height, width)
+        return dd_out, torch.stack([first, last]).reshape(2, height, width), d_lut, *extra
     return d_vol, d_grad, d_lut, *extra
 
 
@@ -978,12 +1015,12 @@ def render(scene, camera_matrices, params: RenderParams, height: int, width: int
 def render_diff(scene, camera_matrices, params: RenderParams, height: int, width: int) -> torch.Tensor:
     """Plain differentiable slab render -> (H, W, 4) on the scene's device:
     :func:`march_slabs` forward and :func:`replay_slabs` backward (with
-    :func:`voxel_grad` and, for camera gradients, :func:`feats_grad` under
-    smoothing), the counterpart of the jnp ``slab.render_diff`` (see
+    :func:`smooth_voxel_grad` and, for camera gradients, :func:`feats_grad`
+    under smoothing), the counterpart of the jnp ``slab.render_diff`` (see
     :func:`volym_tpu_torch.ops.slab_march.render_diff`)."""
     from volym_tpu_torch.ops import slab_march
 
     return slab_march.render_diff(
         scene, camera_matrices, params, height, width, march_fn=march_slabs, replay_fn=replay_slabs,
-        scatter_fn=voxel_grad, feats_grad_fn=feats_grad,
+        scatter_fn=smooth_voxel_grad, feats_grad_fn=feats_grad,
     )

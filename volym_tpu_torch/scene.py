@@ -3,12 +3,15 @@
 Counterpart of :mod:`volym_tpu.scene`.  Besides the float32 volume, a scene
 built from uint8 data keeps the uint8 grid itself (``volume_u8``): the u8
 march streams it directly, 1 byte a voxel, instead of re-rounding the float
-copy every frame.
+copy every frame, but only while the copy is current
+(:meth:`Scene.current_volume_u8`); otherwise the march derives the grid
+from ``volume``, as the JAX package does on every frame.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import weakref
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -27,19 +30,43 @@ class Scene:
       tf_lut:     (N, 4) float32 RGBA LUT.
       volume_u8:  (D, H, W) uint8 with ``volume == volume_u8 / 255``, or
                   ``None`` when the volume is not u8-representable.
+      u8_source:  which ``volume`` tensor, at which ``_version``, the
+                  ``volume_u8`` copy was made from (:func:`u8_record`), or
+                  ``None``.  Set by :meth:`from_uint8`, by
+                  :func:`volym_tpu_torch.convert.scene` and by :meth:`to`;
+                  a scene made any other way (``dataclasses.replace``
+                  included) has no record for its own volume.
     """
 
     volume: torch.Tensor
     importance: torch.Tensor
     tf_lut: torch.Tensor
     volume_u8: torch.Tensor | None = None
+    u8_source: tuple | None = field(default=None, repr=False, compare=False)
+
+    def current_volume_u8(self) -> torch.Tensor | None:
+        """``volume_u8`` while it is the copy of ``volume`` as it stands:
+        the record names these two tensors at their present ``_version``
+        (an in-place edit of either bumps it).  ``None`` otherwise."""
+        if self.volume_u8 is None or self.u8_source is None:
+            return None
+        vol_ref, vol_version, u8_ref, u8_version = self.u8_source
+        current = (
+            vol_ref() is self.volume and u8_ref() is self.volume_u8
+            and vol_version == self.volume._version and u8_version == self.volume_u8._version
+        )
+        return self.volume_u8 if current else None
 
     def to(self, device) -> "Scene":
+        current = self.current_volume_u8() is not None
+        volume = self.volume.to(device)
+        volume_u8 = None if self.volume_u8 is None else self.volume_u8.to(device)
         return Scene(
-            volume=self.volume.to(device),
+            volume=volume,
             importance=self.importance.to(device),
             tf_lut=self.tf_lut.to(device),
-            volume_u8=None if self.volume_u8 is None else self.volume_u8.to(device),
+            volume_u8=volume_u8,
+            u8_source=u8_record(volume, volume_u8) if current else None,
         )
 
     @property
@@ -61,11 +88,14 @@ class Scene:
             else np.zeros_like(vol)
         )
         lut = (tf or TransferFunction.default()).build_lut()
+        volume = torch.as_tensor(vol, device=device)
+        grid = torch.as_tensor(np.ascontiguousarray(volume_u8, np.uint8), device=device)
         return cls(
-            volume=torch.as_tensor(vol, device=device),
+            volume=volume,
             importance=torch.as_tensor(imp, device=device),
             tf_lut=torch.as_tensor(lut, device=device),
-            volume_u8=torch.as_tensor(np.ascontiguousarray(volume_u8, np.uint8), device=device),
+            volume_u8=grid,
+            u8_source=u8_record(volume, grid),
         )
 
     @classmethod
@@ -98,3 +128,10 @@ class Scene:
             imp = assets.map_segments_to_importance(labels, infos)
             return cls.from_uint8(vol, imp, device=device)
         raise ValueError(f"unknown synthetic scene kind: {kind}")
+
+
+def u8_record(volume: torch.Tensor, volume_u8: torch.Tensor) -> tuple:
+    """The record that ``volume_u8`` is the uint8 copy of ``volume`` as the
+    two stand now: weak references to both tensors (a freed tensor never
+    matches a new one) and their ``_version`` counters."""
+    return weakref.ref(volume), volume._version, weakref.ref(volume_u8), volume_u8._version
