@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Drive volym_tpu_torch once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR``: DIR is a checkout of another commit; its march (B1) and
+gate (B6, B7) kernels are built from its sources and timed beside this
+checkout's on the same inputs in every cell where they run (before /
+after, one process, one card).
 
 Phases, in order; any failure ends the run with a nonzero exit:
 
@@ -10,7 +15,9 @@ Phases, in order; any failure ends the run with a nonzero exit:
    source, all started together): the march (B1), the replay (B2), the
    voxel-gradient scatters (B3 and B4, one source, fused with the smoothing
    stencil's transpose and without it), the plain rows' camera chain (B5)
-   and the look-ahead gate (B6 straight and B7 cone, one source);
+   and the look-ahead gate (B6 straight and B7 cone, one source); print
+   ptxas's registers and spills of every march and gate kernel, and B7's
+   occupancy (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 3. hold the kernels to their plain PyTorch versions on the card: 64^3
    synthetic bonsai, 96x64 rays, every (major axis, sign) view x {nearest,
    trilinear} x {u8 native planes, f32 resampled planes} x {shaded,
@@ -110,12 +117,20 @@ Phases, in order; any failure ends the run with a nonzero exit:
    (Gaussian smoothing on), the second with ``--importance --cone --scene
    teapot``.
 
-The second-to-last line is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+In phases 3-6 each case and cell where B1 runs also prints how its
+(block, batch) pairs split between the staged route and the direct one,
+from the transcription of the kernel's plan (``slab_march.stage_plan``) on
+the case's own inputs; the small cases must take both routes.
+
+The third-to-last line gives, for every cell, B1's and B7's ms (and the
+``--parent`` checkout's, or null) and B1's staged share, with B7's
+occupancy; the second-to-last line is a JSON summary of the kernels; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import subprocess
@@ -405,9 +420,141 @@ def unfold(feats, dd, vol_shape, params):
     return slab.smooth_dd_transpose(feats, dd, nr, nc, bilinear)
 
 
-def main() -> int:
+def stencil_steps(feats, vol, sign, params, threshold, sampled) -> int:
+    """The sampled steps (``sampled``, (N, rays) bool) whose smoothing
+    stencil can reach ``threshold``.  The march without the residual skips,
+    exactly, the stencil of a step whose 7 plain rows all lie below it
+    (``sample_bound`` in csrc/slab_march.cu), so only these steps count
+    toward its operations bound."""
+    import torch
+
+    from volym_tpu_torch.render import slab
+
+    rows = slab._stencil_rows(feats.reshape(slab.N_FEATURES, -1), vol, sign, params)
+    top = rows[0]
+    for row in rows[1:]:
+        top = torch.maximum(top, row)
+    del rows
+    return int((sampled.reshape(top.shape) & (top.clamp_min(0.0) * (1.0 + 2.0**-16) >= threshold)).sum())
+
+
+def ptxas_report(log_text: str) -> dict:
+    """Each kernel's registers and spill bytes from nvcc's ``-Xptxas -v``
+    output: {kernel: [registers, spill stores + loads]}, the kernel named by
+    its function and its template arguments (1/0 for each bool)."""
+    report, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            fn = re.search(r"\d+(slab_march_kernel|important_bounds_kernel|lookahead_kernel)", mangled)
+            args = "".join(re.findall(r"Lb([01])E", mangled))
+            name = (fn.group(1) if fn else mangled[:40]) + (f"<{args}>" if args else "")
+            report[name] = [0, 0]
+        elif name and "bytes spill" in line:
+            report[name][1] = sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif name and "Used" in line:
+            report[name][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    if not report:
+        raise AssertionError("no ptxas report in nvcc's output")
+    return report
+
+
+def important_span(levels) -> dict:
+    """The slices of a level grid with important texels (level >= 1), and
+    the mean share of such a slice that the rows x columns of those texels
+    span: what the cone gate's bounds pass leaves its probes to tap."""
+    import torch
+
+    imp = levels >= 1
+    has = imp.reshape(imp.shape[0], -1).any(1)
+    if not bool(has.any()):
+        return dict(important_slices=0, important_span_share=0.0)
+
+    def extent(mask):  # (slices, n) bool -> (slices,) last - first + 1
+        idx = torch.arange(mask.shape[1], device=mask.device)
+        return torch.where(mask, idx, -1).amax(1) - torch.where(mask, idx, mask.shape[1]).amin(1) + 1
+
+    span = extent(imp[has].any(2)) * extent(imp[has].any(1))
+    return dict(important_slices=int(has.sum()),
+                important_span_share=float(span.float().mean()) / (levels.shape[1] * levels.shape[2]))
+
+
+def staged_pairs(feats, vol, grad, u8, params, stop=None) -> dict:
+    """How the CUDA march's (block, batch) pairs that read densities split
+    between the staged and the direct route on these inputs, from the
+    transcription of its plan (``slab_march.stage_plan``; without ``stop``
+    every ray marches to its exit, which makes the windows the largest the
+    kernel can plan)."""
+    from volym_tpu_torch.ops import slab_march
+
+    aligned = all(t is None or (t.data_ptr() % 16 == 0 and t.shape[-1] * t.element_size() % 16 == 0)
+                  for t in (vol, grad))
+    staged, direct = slab_march.stage_plan(feats, vol.shape, u8, params, stop=stop, can_stage=aligned).counts()
+    return dict(staged=staged, direct=direct, staged_share=staged / max(staged + direct, 1))
+
+
+class KernelSwap:
+    """Inside it, ``module``'s wrapper launches ``fn``, the C entry of
+    another build of its kernel, instead of its own."""
+
+    def __init__(self, module, fn):
+        self.module, self.fn = module, fn
+
+    def __enter__(self):
+        self.own = self.module._library
+        self.module._library = lambda: self.fn
+        return self
+
+    def __exit__(self, *exc):
+        self.module._library = self.own
+        return False
+
+
+class Before:
+    """The march (B1) and gate (B6, B7) kernels built from another
+    checkout's sources (``--parent DIR``), launched through this checkout's
+    wrappers on the same inputs, so that a kernel's time before a change
+    sits beside its time after it, in one process on one card.  The C
+    entries take the same arguments."""
+
+    NAMES = ("slab_march", "lookahead")
+
+    def __init__(self, root):
+        self.csrc = Path(root).resolve() / "volym_tpu_torch" / "ops" / "csrc"
+        if not all((self.csrc / f"{n}.cu").exists() for n in self.NAMES):
+            raise SystemExit(f"chip_smoke: --parent {root} holds no volym_tpu_torch/ops/csrc/{{slab_march,lookahead}}.cu")
+        self.fns = {}
+
+    def build(self, name):
+        from volym_tpu_torch.ops import _build
+
+        return _build.build(name, self.csrc)
+
+    def load(self, builds):
+        from volym_tpu_torch.ops import lookahead, slab_march
+
+        self.modules = {"slab_march": slab_march, "lookahead": lookahead}
+        for name, built in builds.items():
+            self.fns[name] = self.modules[name]._bind(ctypes.CDLL(str(built.path)))
+
+    def ms(self, name, fn, reps):
+        """``cuda_ms`` of ``fn`` with the module ``name``'s kernel swapped
+        for the other checkout's."""
+        with KernelSwap(self.modules[name], self.fns[name]):
+            return cuda_ms(fn, reps)
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import numpy as np
     import torch
+
+    ap = argparse.ArgumentParser(description="Drive volym_tpu_torch once on one NVIDIA GPU and check it.")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of another commit: its march and gate kernels are timed beside these")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this check needs an NVIDIA GPU")
@@ -430,13 +577,27 @@ def main() -> int:
     # phase 2: build, one nvcc per source, all at once
     if "arch=compute_90a,code=sm_90a" not in _build.NVCC_FLAGS:
         raise AssertionError("the kernels must be built for sm_90a")
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        builds = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+    parent = Before(args.parent) if args.parent else None
+    with ThreadPoolExecutor(len(SOURCES) + len(Before.NAMES)) as pool:
+        own = pool.map(_build.build, SOURCES)
+        theirs = pool.map(parent.build, Before.NAMES) if parent else ()
+        builds = dict(zip(SOURCES, own))
+        before_builds = dict(zip(Before.NAMES, theirs))
     for name, built in builds.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", built.log)]
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", built.log))
         log(f"build: {built.path.name} for sm_90a in {built.seconds:.1f} s; ptxas: {len(regs)} kernels, "
             f"{min(regs, default=0)}-{max(regs, default=0)} registers, {spills} bytes of spill stores and loads")
+    for name in Before.NAMES:
+        log(f"ptxas {name}: {json.dumps(ptxas_report(builds[name].log))}")
+    blocks, threads = lookahead.cone_occupancy()
+    per_sm = torch.cuda.get_device_properties(0).max_threads_per_multi_processor
+    cone_occupancy = dict(blocks_per_sm=blocks, threads_per_block=threads, occupancy=blocks * threads / per_sm)
+    log(f"B7 occupancy (cudaOccupancyMaxActiveBlocksPerMultiprocessor): {json.dumps(cone_occupancy)}")
+    if parent:
+        parent.load(before_builds)
+        for name, built in before_builds.items():
+            log(f"build --parent {name} in {built.seconds:.1f} s; ptxas: {json.dumps(ptxas_report(built.log))}")
 
     # phase 3: kernels vs plain versions, small
     err = dict.fromkeys(KERNELS, 0.0)  # the largest absolute error
@@ -456,6 +617,12 @@ def main() -> int:
         return r, worst
 
     worst_edge, n_march, n_emit, n_replay = 0.0, 0, 0, 0
+    small_routes = {"march": [0, 0], "gated": [0, 0], "smoothing": [0, 0]}  # B1's (staged, direct) pairs
+
+    def count_routes(key, feats, vol, grad, u8, p):
+        pairs = staged_pairs(feats, vol, grad, u8, p)
+        small_routes[key][0] += pairs["staged"]
+        small_routes[key][1] += pairs["direct"]
     small = Scene.synthetic("bonsai", side=SMALL_SIDE, seed=0, device=dev)
     g_small = torch.from_numpy(
         np.random.default_rng(3).uniform(-1, 1, (SMALL_H, SMALL_W, 4)).astype(np.float32)
@@ -477,6 +644,7 @@ def main() -> int:
                     got = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8)
                     want = slab.march_slabs(feats, vol, lut, sign, p, grad, u8=u8)
                     torch.cuda.synchronize()
+                    count_routes("march", feats, vol, grad, u8, p)
                     r, _ = hold("slab_march", want, got, label)
                     if not bool(torch.isfinite(got).all()):
                         raise AssertionError("non-finite kernel output")
@@ -514,7 +682,8 @@ def main() -> int:
                             parity.check_close(a, b, f"{label} stored vs re-sampled {name}")
     log(f"small: march == plain in {n_march}/48 cases (max abs err {err['slab_march']:.3e}, "
         f"worst knife-edge share {worst_edge:.2e})")
-    log(f"small: march with residual == plain bit for bit in {n_emit}/48 cases")
+    log(f"small: march with residual == plain bit for bit in {n_emit}/48 cases; B1's (block, batch) pairs "
+        f"staged / direct {small_routes['march']}")
     log(f"small: replay == plain in {n_replay}/96 cases, stored and re-sampled "
         f"(max abs err {err['slab_replay']:.3e}, max err over its scale {rel['slab_replay']:.3e}); "
         f"the two routes agree in all {n_emit}")
@@ -555,6 +724,7 @@ def main() -> int:
                 img = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, gate=words)
                 plain = slab.march_slabs(feats, vol, lut, sign, p, grad, u8, gate=want)
                 torch.cuda.synchronize()
+                count_routes("gated", feats, vol, grad, u8, p)
                 if not torch.equal(img, plain):
                     raise AssertionError(f"{label}: the march with the gate differs from the plain one by "
                                          f"{float((img - plain).abs().max()):.3e}")
@@ -572,7 +742,7 @@ def main() -> int:
                 n_gated_smooth += 1
     log(f"small: gate kernels == plain gate bit for bit in {n_gate}/24 cases; march with the gate == plain "
         f"bit for bit in {n_gated}/24, the gate changed the image in {n_changed}; with smoothing too in "
-        f"{n_gated_smooth}/24")
+        f"{n_gated_smooth}/24; B1's (block, batch) pairs staged / direct {small_routes['gated']}")
     if (n_gate, n_gated, n_gated_smooth) != (24, 24, 24) or not n_changed:
         raise AssertionError(f"{n_gate}, {n_gated}, {n_gated_smooth} gate cases ran, expected 24, 24, 24; "
                              f"{n_changed} changed the image")
@@ -607,6 +777,7 @@ def main() -> int:
                                              f"{float((img - plain_img).abs().max()):.3e}")
                     if not torch.equal(dens, plain_dens):
                         raise AssertionError(f"{label}: the residual differs from the plain march")
+                    count_routes("smoothing", feats, vol, grad, u8, p)
                     n_smooth += 1
                     n_engaged += not torch.equal(
                         img, slab_march.march_cuda(feats, vol, lut, sign, p.replace(use_gaussian_smoothing=False),
@@ -664,7 +835,10 @@ def main() -> int:
         f"two routes bit for bit, the step range bit for bit; B3/B4 without the fold == plain in {n_scatter}/48 and "
         f"fused with the fold == plain in {n_fold}/48 (max abs err {err['voxel_grad']:.3e} / "
         f"{err['voxel_grad_shaded']:.3e}, over its scale {rel['voxel_grad']:.3e} / {rel['voxel_grad_shaded']:.3e}); "
-        f"folded rows with one source an offset bit for bit: {fold_rows[0]}/{fold_rows[1]}")
+        f"folded rows with one source an offset bit for bit: {fold_rows[0]}/{fold_rows[1]}; B1's (block, batch) "
+        f"pairs staged / direct {small_routes['smoothing']}")
+    if not (sum(r[0] for r in small_routes.values()) and sum(r[1] for r in small_routes.values())):
+        raise AssertionError(f"the small cases should take both of B1's routes: {small_routes}")
     if (n_smooth, n_smooth_replay, n_scatter, n_fold) != (48, 96, 48, 48) or n_engaged != 48:
         raise AssertionError(f"{n_smooth}, {n_smooth_replay}, {n_scatter}, {n_fold} smoothing cases ran, expected 48, "
                              f"96, 48, 48; smoothing changed {n_engaged} images")
@@ -780,23 +954,27 @@ def main() -> int:
 
         feats, vol, lut, sign, grad, u8 = slab_march.prepare(scene, cm0, p, FULL_H, FULL_W)
         march_ms = cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8), 20)
+        march_before_ms = parent.ms("slab_march", lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad,
+                                                                                 u8=u8), 20) if parent else None
         plain_march_ms = cuda_ms(lambda: slab.march_slabs(feats, vol, lut, sign, p, grad, u8=u8), 3)
         frame_ms = cuda_ms(lambda: renderers[name](cm0), 10)
         plain_frame_ms = cuda_ms(lambda: slab_march.render(scene, cm0, p, FULL_H, FULL_W, march_fn=slab.march_slabs), 3)
         rays = FULL_H * FULL_W
-        # composited (and, for the stencil, sampled) steps of this frame,
-        # for the operations bound
+        # composited steps of this frame and, for the stencil, the sampled
+        # ones and those of them whose stencil runs, for the operations bound
         _, dens = slab.march_slabs(feats, vol, lut, sign, p, grad, u8, emit_density=True)
         threshold = slab.march_knobs(p, u8)[0]
         d0 = dens.reshape(vol.shape[0], -1, rays)[:, 0]
         composited, sampled = int((d0 >= threshold).sum()), int((d0 != 0.0).sum())
+        stencils = stencil_steps(feats, vol, sign, p, threshold, d0 != 0.0) if p.use_gaussian_smoothing else 0
         del dens, d0
-        ops = composited * MARCH_OPS_PER_STEP + (sampled * SMOOTH_OPS_PER_STEP if p.use_gaussian_smoothing else 0)
+        ops = composited * MARCH_OPS_PER_STEP + stencils * SMOOTH_OPS_PER_STEP
         bound_ms, bound_by = bound(nbytes(feats, vol, lut, grad) + rays * 16, ops)
         results[name] = dict(
             planes=int(vol.shape[0]), u8=u8, smoothing=p.use_gaussian_smoothing, march_ms=march_ms,
+            march_before_ms=march_before_ms, stage=staged_pairs(feats, vol, grad, u8, p),
             plain_march_ms=plain_march_ms, bound_ms=bound_ms, bound_by=bound_by, composited_steps=composited,
-            sampled_steps=sampled,
+            sampled_steps=sampled, stencil_steps=stencils,
             frame_ms=frame_ms, plain_frame_ms=plain_frame_ms,
             rays_per_s=rays / (frame_ms / 1e3), plain_rays_per_s=rays / (plain_frame_ms / 1e3),
             max_abs_err=r.max_abs_err, knife_edge_share=r.edge_frac, hit_share=float(hit.float().mean()),
@@ -876,9 +1054,14 @@ def main() -> int:
             base_img = slab_march.render(teapot, cm0, p.replace(use_importance_rendering=False), FULL_H, FULL_W)
             row.update(
                 kernel=kernel, gate_ms=cuda_ms(lambda: lookahead.gate_cuda(*gate_args), 20),
+                gate_before_ms=parent.ms("lookahead", lambda: lookahead.gate_cuda(*gate_args), 20) if parent else None,
                 plain_gate_ms=cuda_ms(lambda: slab.lookahead_gate(*gate_args), 2),
                 gate_bound_ms=gate_bound[0], gate_bound_by=gate_bound[1], gate_mib=words.numel() * 4 / 2**20,
                 set_bit_share=float(plain_gate.float().mean()),
+                # what B7's bounds pass lets its probes skip: the slices with
+                # important texels, and the share of their area the rows and
+                # columns of those texels span
+                **important_span(levels),
                 pixels_differing_from_base=float(((img - base_img).abs().amax(-1) > 1e-6).float().mean()),
             )
             del plain_gate, got
@@ -888,6 +1071,9 @@ def main() -> int:
         plane = None if words is None else lookahead.unpack_gate(words, vol.shape[0])
         row.update(
             march_ms=cuda_ms(lambda: slab_march.march_cuda(*march_args, u8=u8, gate=words), 20),
+            march_before_ms=parent.ms("slab_march", lambda: slab_march.march_cuda(*march_args, u8=u8, gate=words),
+                                      20) if parent else None,
+            stage=staged_pairs(feats, vol, grad, u8, p),
             plain_march_ms=cuda_ms(lambda: slab.march_slabs(*march_args, u8, gate=plane), 2),
             frame_ms=cuda_ms(lambda: la_renderers[name](cm0), 10), plain_frame_ms=cuda_ms(plain_frame, 1),
         )
@@ -964,6 +1150,8 @@ def main() -> int:
         out, dens = slab_march.march_cuda(feats, vol, lut, sign, train_p, u8=u8, emit_density=True)
         g = torch.ones_like(out)
         fwd_ms = cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, train_p, u8=u8, emit_density=True), 10)
+        fwd_before_ms = parent.ms("slab_march", lambda: slab_march.march_cuda(
+            feats, vol, lut, sign, train_p, u8=u8, emit_density=True), 10) if parent else None
         zero_ms = cuda_ms(lambda: torch.zeros_like(dens), 10)
         replay_ms = cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, train_p, out, g, None, u8, dens), 10)
         replay_resampled_ms = cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, train_p, out, g, None, u8), 10)
@@ -992,7 +1180,8 @@ def main() -> int:
         )
         training[f"{h}x{w}"] = dict(
             planes=int(vol.shape[0]), stored=stored, residual_mib=dens.numel() * 4 / 2**20,
-            fwd_residual_ms=fwd_ms, fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1], zero_fill_ms=zero_ms,
+            fwd_residual_ms=fwd_ms, fwd_residual_before_ms=fwd_before_ms,
+            stage=staged_pairs(feats, vol, None, u8, train_p), fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1], zero_fill_ms=zero_ms,
             replay_ms=replay_ms, replay_resampled_ms=replay_resampled_ms, plain_replay_ms=plain_replay_ms,
             replay_bound_ms=replay_bound[0], replay_bound_by=replay_bound[1],
             step_ms=step_ms, plain_step_ms=plain_step_ms,
@@ -1118,6 +1307,11 @@ def main() -> int:
             fwd_residual_ms=cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8,
                                                                   emit_density=True), 10),
             fwd_ms=cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8), 10),
+            fwd_residual_before_ms=parent.ms("slab_march", lambda: slab_march.march_cuda(
+                feats, vol, lut, sign, p, grad, u8=u8, emit_density=True), 10) if parent else None,
+            fwd_before_ms=parent.ms("slab_march", lambda: slab_march.march_cuda(
+                feats, vol, lut, sign, p, grad, u8=u8), 10) if parent else None,
+            stage=staged_pairs(feats, vol, grad, u8, p),
             replay_stored_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8, dens), 10),
             replay_resampled_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8), 10),
             fold_ms=cuda_ms(lambda: voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p), 10),
@@ -1206,12 +1400,18 @@ def main() -> int:
         threshold = slab.march_knobs(p, u8)[0]
         d0 = dens[:, 0] if shaded else dens
         composited, sampled = int((d0 >= threshold).sum()), int((d0 != 0.0).sum())
+        stencils = stencil_steps(feats, vol, sign, p, threshold, d0 != 0.0)
         entries = int((folded != 0.0).sum())
-        row["fwd_bound"] = bound(nbytes(feats, vol, lut, grad, out, dens),
-                                 composited * MARCH_OPS_PER_STEP + sampled * SMOOTH_OPS_PER_STEP)
+        # with the residual every sampled step runs its stencil; without it,
+        # only those whose rows can reach the threshold
+        row["fwd_residual_bound"] = bound(nbytes(feats, vol, lut, grad, out, dens),
+                                          composited * MARCH_OPS_PER_STEP + sampled * SMOOTH_OPS_PER_STEP)
+        row["fwd_bound"] = bound(nbytes(feats, vol, lut, grad, out),
+                                 composited * MARCH_OPS_PER_STEP + stencils * SMOOTH_OPS_PER_STEP)
         row["replay_bound"] = bound(nbytes(feats, lut, out, g, dd, steps, lut) + int((dens != 0.0).sum()) * 4,
                                     composited * REPLAY_OPS_PER_STEP)
-        row.update(composited_steps=composited, sampled_steps=sampled, scatter_entries=entries, step0=agree)
+        row.update(composited_steps=composited, sampled_steps=sampled, stencil_steps=stencils,
+                   scatter_entries=entries, step0=agree)
         gtraining[f"{name} {h}x{w}"] = row
         log(f"{label}: {json.dumps(row)}")
         del out, dens, dd, dd0, steps, folded, g, idx, vals, lib, d_v, d_g, plain_v, plain_g
@@ -1316,6 +1516,9 @@ def main() -> int:
         row = dict(
             planes=int(vol.shape[0]), shading=shaded, interpolation=p.interpolation.value,
             fwd_ms=cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad), 10),
+            fwd_before_ms=parent.ms("slab_march", lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad), 10)
+            if parent else None,
+            stage=staged_pairs(feats, vol, grad, False, p),
             replay_camera_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad), 10),
             replay_no_camera_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, nocam, out, g, grad), 10),
             plain_transpose_ms=cuda_ms(lambda: slab.smooth_dd_transpose(feats, dd0, vol.shape[1], vol.shape[2], tri), 1),
@@ -1400,6 +1603,27 @@ def main() -> int:
             out.unlink()
             log(f"cli: screenshot {' '.join(flags)} (smoothing on) wrote a {len(data)}-byte PNG; "
                 f"(march, straight, cone) launches {launched}")
+
+    # B1 and B7 in every cell where they run: ms, the --parent checkout's
+    # ms on the same inputs, and B1's staged share
+    cells = {}
+    for name, row in results.items():
+        cells[f"serving {name}"] = dict(B1=[row["march_ms"], row["march_before_ms"]], stage=row["stage"])
+    for name, row in la_results.items():
+        cells[f"look-ahead {name}"] = dict(B1=[row["march_ms"], row["march_before_ms"]], stage=row["stage"])
+        if row.get("kernel") == "lookahead_cone":
+            cells[f"look-ahead {name}"]["B7"] = [row["gate_ms"], row["gate_before_ms"]]
+    for name, row in training.items():
+        cells[f"training {name}"] = dict(B1_residual=[row["fwd_residual_ms"], row["fwd_residual_before_ms"]],
+                                         stage=row["stage"])
+    for name, row in gtraining.items():
+        cells[f"smoothed training {name}"] = dict(B1=[row["fwd_ms"], row["fwd_before_ms"]],
+                                                  B1_residual=[row["fwd_residual_ms"], row["fwd_residual_before_ms"]],
+                                                  stage=row["stage"])
+    for name, row in ctraining.items():
+        cells[f"camera training {name}"] = dict(B1=[row["fwd_ms"], row["fwd_before_ms"]], stage=row["stage"])
+    log(json.dumps({"B1_B7_ms_after_before": cells, "B7_occupancy": cone_occupancy,
+                    "parent": args.parent}))
 
     bench, step = results["bench"], training[f"{FULL_H}x{FULL_W}"]
     rows = {

@@ -53,6 +53,9 @@ def test_kernel_matches_plain(scene, h, v, interp, stream, shading):
     torch.cuda.synchronize()
     assert np.isfinite(got.cpu().numpy()).all()
     parity.check_close(want, got, f"{interp} {stream} shading={shading}")
+    assert torch.equal(want, got)
+    # 32^3 under 40x56 rays: the tiles' windows fit the stage
+    assert slab_march.stage_plan(feats, vol.shape, u8, p).counts()[0] > 0
     # and against the plain version on the CPU, from the same table
     cpu = slab.march_slabs(
         feats.cpu(), vol.cpu(), lut.cpu(), sign, p, None if grad is None else grad.cpu(), u8=u8
@@ -205,6 +208,7 @@ def test_gate_matches_plain(scene3, h, v, stream, cone):
     plain = slab.march_slabs(feats, vol, lut, sign, p, grad, u8, gate=want)
     torch.cuda.synchronize()
     assert torch.equal(img, plain)
+    assert slab_march.stage_plan(feats, vol.shape, u8, p).counts()[0] > 0
 
 
 def test_lookahead_renderer_counts_launches(scene3, device):
@@ -276,6 +280,32 @@ def test_smooth_march_matches_plain_bitwise(scene256, h, v, interp, stream, shad
     assert torch.equal(dens, plain_dens)
     assert not torch.equal(img, slab.march_slabs(feats, vol, lut, sign, p.replace(use_gaussian_smoothing=False),
                                                  grad, u8))
+    # 256^3 under 40x56 rays: most tiles' windows overflow the stage and
+    # read global memory
+    staged, direct = slab_march.stage_plan(feats, vol.shape, u8, p).counts()
+    assert direct > staged
+
+
+@pytest.mark.parametrize("config", ["bench", "cli_default_gaussian"])
+def test_full_size_frame_stages_bitwise(scene256, config):
+    """B1 at 1024x768 on the 256^3 scene: its tiles' windows fit the stage
+    (at least 90% of the (block, batch) pairs that read), and the frame and
+    its residual are the plain version's bit for bit."""
+    p = RenderParams(interpolation="trilinear", density_threshold=0.15, raymarching_step_size=0.005,
+                     use_shading=False, use_gaussian_smoothing=False, u8_volume=True)
+    if config == "cli_default_gaussian":
+        p = RenderParams(interpolation="nearest", density_threshold=0.12, raymarching_step_size=0.01,
+                         use_shading=True, use_gaussian_smoothing=True, u8_volume=True)
+    cam = Camera(aspect=1024 / 768).orbit(2.0, 0.0, 0.0).matrices()
+    feats, vol, lut, sign, grad, u8 = slab_march.prepare(scene256, cam, p, 768, 1024)
+    staged, direct = slab_march.stage_plan(feats, vol.shape, u8, p).counts()
+    assert staged >= 9 * direct and staged > 0
+    img = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8)
+    img_e, dens = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, emit_density=True)
+    plain_img, plain_dens = slab.march_slabs(feats, vol, lut, sign, p, grad, u8, emit_density=True)
+    torch.cuda.synchronize()
+    assert torch.equal(img, plain_img) and torch.equal(img_e, plain_img)
+    assert torch.equal(dens, plain_dens)
 
 
 def _fold(feats, dd, vol_shape, p):

@@ -170,10 +170,18 @@ def test_gate_dispatches_cpu_tensors_to_plain_version():
 
 def test_kernel_tables_match_python():
     """The CUDA kernels' row constants (csrc/slab_common.cuh) are the
-    Python ones: one definition of each table's layout."""
+    Python ones: one definition of each table's layout.  So are the march's
+    tile, steps a batch and stage size (csrc/slab_march.cu), which
+    ``slab_march.stage_plan`` transcribes."""
     src = (CSRC / "slab_common.cuh").read_text()
     consts = {k: int(v) for k, v in re.findall(r"\b([A-Z][A-Z0-9_]*) = (\d+)[,;]", src)}
     names = [n for n in dir(slab) if re.fullmatch(r"(F|CF)_[A-Z0-9]+|N_FEATURES|CF_STRIDE", n)]
     assert names and all(consts[n] == getattr(slab, n) for n in names), {n: (consts.get(n), getattr(slab, n)) for n in names}
     assert consts["CONE_SAMPLES"] == golden.CONE_SAMPLES
     assert consts["CF_STRIDE"] * consts["CONE_SAMPLES"] == slab.CONE_FEATURES
+    names = ("MARCH_TILE_W", "MARCH_TILE_H", "MARCH_BATCH", "MARCH_BATCH_U8", "STAGE_BYTES")
+    march = dict(re.findall(rf"constexpr int ({'|'.join(names)}) = (\d+);", (CSRC / "slab_march.cu").read_text()))
+    layout = {n: getattr(slab_march, n) for n in names}
+    assert {n: int(v) for n, v in march.items()} == layout
+    plan = slab_march.stage_plan.__defaults__
+    assert plan[-4:] == ((layout["MARCH_TILE_W"], layout["MARCH_TILE_H"]), None, layout["STAGE_BYTES"], True)

@@ -52,14 +52,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
-    src = CSRC / f"{name}.cu"
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+def build(name: str, csrc: Path = CSRC) -> Built:
+    """Compile ``<csrc>/<name>.cu`` unless an up-to-date library exists.
+    nvcc's output is kept beside the library (``.log``), so a reused build
+    still reports its registers and spills."""
+    src = Path(csrc) / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(Path(csrc).glob("*.cuh")))
     digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{digest}.so"
-    if out.exists():
-        return Built(out, 0.0, "")
+    log = out.with_suffix(".log")
+    if out.exists() and log.exists():
+        return Built(out, 0.0, log.read_text())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -71,11 +74,12 @@ def build(name: str) -> Built:
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}")
+        log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return Built(out, time.perf_counter() - t0, proc.stdout + proc.stderr)
+    return Built(out, time.perf_counter() - t0, log.read_text())
 
 
 @functools.cache

@@ -27,19 +27,30 @@
 // each word in a register and stores it once, so nothing is zero-filled and
 // nothing is atomic; the march (slab_march.cu) loads one word per 32 steps.
 //
-// Bound: operations, then latency.  A straight step is ~30 float operations
-// and one gather where valid; a cone step is 9 such chains (8 probes and the
-// main ray) with up to 9 gathers.  Threads cover 16x16 pixel tiles, so that
-// neighbouring threads gather neighbouring voxels.  The TPU machinery (the
-// occupancy meta, the inverted grid, ternary bf16 slices, 8-columns-a-word
-// bit planes, row windows) is not carried over: a thread reads the voxel it
-// needs.
+// Bound: instructions.  A straight step is ~30 float operations and one
+// gather where valid.  A cone step is the ray's range test and 8 probes,
+// and a live ray sweeps every step, as the probes update ns outside the
+// main ray's window.  Importance is sparse (the teapot's lobster has
+// important texels in 52 of 256 slices, and they span 2.6% of such a
+// slice's rows x columns on average), so the
+// cone kernel first bounds, for each slice, the rows and columns its
+// important texels span (important_bounds_kernel, one block a slice).  A
+// step whose slice has none runs no probe (a branch the whole warp takes),
+// and a probe a texel or more outside them takes no tap (its level is 0);
+// the taps that remain are formed in integers (snapped_tap).  The main
+// ray's own sample is read only where the bit is set.  A ray's eight
+// directions stay on one thread: they are independent, so the thread has
+// the parallelism, and the step's range test and bounds are formed once
+// for all eight (spreading them over eight threads repeated that work in
+// each and took twice the time).  Threads cover 16x16 pixel tiles, so that
+// neighbouring threads gather neighbouring voxels.
 //
 // Numerics: built with --fmad=false, and sqrtf and '/' are correctly
 // rounded without fast math, so norm_pos, m_end, j + d_range * rate and the
 // snapped probe coordinates round as in PyTorch and on the TPU.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "slab_common.cuh"
@@ -66,11 +77,55 @@ __device__ __forceinline__ void emit(uint32_t* __restrict__ g, size_t n_rays, in
     }
 }
 
+// The nearest tap of a snapped coordinate c already clipped to [0, n_tex - 1]:
+// nearest_index's floor(snap(c) + 0.5) in integers.  snap(c) is i / 2^bits
+// with i = floor(c * 2^bits + 0.5) exact (c * 2^bits < 2^24), so
+// floor(snap(c) + 0.5) = (i + 2^(bits-1)) >> bits, within [0, n_tex - 1].
+__device__ __forceinline__ int snapped_tap(float c, int bits, int n_tex) {
+    if (bits == 0) return clampi((int)floorf(c + 0.5f), 0, n_tex - 1);
+    const int i = __float2int_rd(c * (float)(1 << bits) + 0.5f);
+    return (i + (1 << (bits - 1))) >> bits;
+}
+
+// B7's first pass, one block a slice k: the rows and columns its important
+// texels (level >= 1) span, bounds[k] = (row min, row max, column min,
+// column max), or (INT_MAX, -1, INT_MAX, -1) when it has none
+__global__ void __launch_bounds__(256) important_bounds_kernel(const uint8_t* __restrict__ levels, int nr, int nc,
+                                                               int4* __restrict__ bounds) {
+    __shared__ int s[4];
+    if (threadIdx.x < 4) s[threadIdx.x] = (threadIdx.x & 1) ? -1 : INT_MAX;
+    __syncthreads();
+    const uint8_t* sl = levels + (size_t)blockIdx.x * nr * nc;
+    int r0 = INT_MAX, r1 = -1, c0 = INT_MAX, c1 = -1;
+    for (int i = threadIdx.x; i < nr * nc; i += blockDim.x) {
+        if (__ldg(sl + i) >= 1) {
+            const int row = i / nc, col = i - row * nc;
+            r0 = min(r0, row);
+            r1 = max(r1, row);
+            c0 = min(c0, col);
+            c1 = max(c1, col);
+        }
+    }
+    r0 = __reduce_min_sync(0xffffffffu, r0);
+    r1 = __reduce_max_sync(0xffffffffu, r1);
+    c0 = __reduce_min_sync(0xffffffffu, c0);
+    c1 = __reduce_max_sync(0xffffffffu, c1);
+    if ((threadIdx.x & 31) == 0) {
+        atomicMin(s + 0, r0);
+        atomicMax(s + 1, r1);
+        atomicMin(s + 2, c0);
+        atomicMax(s + 3, c1);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) bounds[blockIdx.x] = make_int4(s[0], s[1], s[2], s[3]);
+}
+
 template <bool CONE>
 __global__ void __launch_bounds__(TILE_X * TILE_Y) lookahead_kernel(
     const float* __restrict__ feats,   // (N_FEATURES, H, W)
     const float* __restrict__ cfeats,  // (CONE_SAMPLES * CF_STRIDE, H, W) when CONE
     const uint8_t* __restrict__ levels,  // (n, nr, nc)
+    const int4* __restrict__ bounds,     // (n,) when CONE
     uint32_t* __restrict__ gate,       // (ceil(n / 32), H, W)
     int height, int width, int n, int nr, int nc, int sign, int subtexel) {
     const int x = blockIdx.x * TILE_X + threadIdx.x;
@@ -131,16 +186,23 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) lookahead_kernel(
         }
         if (CONE) {
             // the probes update ns at every step: a probe crossing may lie
-            // outside the main ray's window
+            // outside the main ray's window; one a texel or more outside
+            // its slice's important rows and columns reads level 0
+            const int4 bd = __ldg(bounds + (sign > 0 ? j : n - 1 - j));
+            if (bd.x <= bd.y) {
+                const float br0 = (float)bd.x - 1.0f, br1 = (float)bd.y + 1.0f;
+                const float bc0 = (float)bd.z - 1.0f, bc1 = (float)bd.w + 1.0f;
 #pragma unroll
-            for (int c = 0; c < CONE_SAMPLES; ++c) {
-                const float rows_u = crs[c] * jf + crb[c];
-                const float cols_u = ccs[c] * jf + ccb[c];
-                const float t_c = cts[c] * jf + ctb[c];
-                if (rows_u >= -0.5f && rows_u <= rhi && cols_u >= -0.5f && cols_u <= chi && t_c > 0.0f) {
-                    const float rows = snap(clampf(rows_u, 0.0f, rmax), subtexel);
-                    const float cols = snap(clampf(cols_u, 0.0f, cmax), subtexel);
-                    if (__ldg(sl + nearest_index(rows, cols, nr, nc)) >= 1) ns[c] = jf;
+                for (int c = 0; c < CONE_SAMPLES; ++c) {
+                    const float rows_u = crs[c] * jf + crb[c];
+                    const float cols_u = ccs[c] * jf + ccb[c];
+                    const float t_c = cts[c] * jf + ctb[c];
+                    if (rows_u >= -0.5f && rows_u <= rhi && cols_u >= -0.5f && cols_u <= chi && t_c > 0.0f &&
+                        rows_u >= br0 && rows_u <= br1 && cols_u >= bc0 && cols_u <= bc1) {
+                        const int rr = snapped_tap(clampf(rows_u, 0.0f, rmax), subtexel, nr);
+                        const int cc = snapped_tap(clampf(cols_u, 0.0f, cmax), subtexel, nc);
+                        if (__ldg(sl + (size_t)rr * nc + cc) >= 1) ns[c] = jf;
+                    }
                 }
             }
         }
@@ -159,20 +221,37 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) lookahead_kernel(
 
 }  // namespace
 
-// C entry for ctypes: launches the cone kernel when `cone_feats` is not
-// NULL, else the straight one, on `stream`; returns cudaGetLastError().
+// C entry for ctypes: launches the cone kernel (after its bounds pass into
+// `scratch`) when `cone_feats` is not NULL, else the straight one, on
+// `stream`; returns cudaGetLastError().
 extern "C" int lookahead_launch(const float* feats, const float* cone_feats, const uint8_t* levels,
                                 uint32_t* gate, int height, int width, int n, int nr, int nc, int sign,
-                                int subtexel, void* stream) {
+                                int subtexel, void* stream, int* scratch) {
     const dim3 block(TILE_X, TILE_Y);
     const dim3 grid((width + TILE_X - 1) / TILE_X, (height + TILE_Y - 1) / TILE_Y);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (cone_feats != nullptr) {
-        lookahead_kernel<true><<<grid, block, 0, s>>>(feats, cone_feats, levels, gate, height, width, n, nr, nc,
-                                                      sign, subtexel);
+        // the first pass, into `scratch` (n x 4 int32): each slice's
+        // important rows and columns
+        int4* bounds = reinterpret_cast<int4*>(scratch);
+        important_bounds_kernel<<<n, 256, 0, s>>>(levels, nr, nc, bounds);
+        lookahead_kernel<true><<<grid, block, 0, s>>>(feats, cone_feats, levels, bounds, gate, height, width, n, nr,
+                                                      nc, sign, subtexel);
     } else {
-        lookahead_kernel<false><<<grid, block, 0, s>>>(feats, nullptr, levels, gate, height, width, n, nr, nc,
-                                                       sign, subtexel);
+        lookahead_kernel<false><<<grid, block, 0, s>>>(feats, nullptr, levels, nullptr, gate, height, width, n, nr,
+                                                       nc, sign, subtexel);
     }
     return (int)cudaGetLastError();
+}
+
+// C entry for ctypes: the cone kernel's resident blocks per SM and threads
+// a block (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1
+extern "C" int lookahead_cone_occupancy(int* threads_per_block) {
+    int blocks = 0;
+    *threads_per_block = TILE_X * TILE_Y;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, lookahead_kernel<true>, TILE_X * TILE_Y, 0) !=
+        cudaSuccess) {
+        return -1;
+    }
+    return blocks;
 }

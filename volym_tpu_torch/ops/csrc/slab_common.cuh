@@ -7,7 +7,10 @@
 // stencil with its tap-offset derivative.  The kernels must evaluate these
 // expressions identically, bit for bit (build with --fmad=false), so that
 // the replay reproduces the forward's masks and the gate the march's
-// samples.
+// samples.  A sample reads its texels through an accessor: a slice in
+// global memory (GlobalTexels, what every kernel but the march reads) or a
+// window of one staged in shared memory (StagedTexels, the march's stage);
+// the taps and their arithmetic are the same either way.
 
 #pragma once
 
@@ -61,21 +64,62 @@ __device__ __forceinline__ float texel(const T* __restrict__ sl, int idx) {
     return (float)__ldg(sl + idx);
 }
 
-// one sample of an (nr, nc) slice at snapped texel coordinates, clamp-to-edge
-template <bool BILINEAR, typename T>
-__device__ __forceinline__ float sample(const T* __restrict__ sl, float rows, float cols, int nr, int nc) {
+// texel (r, c) of one (nr, nc) slice in global memory
+template <typename T>
+struct GlobalTexels {
+    const T* __restrict__ sl;
+    int nc;
+    __device__ __forceinline__ float operator()(int r, int c) const { return texel(sl, r * nc + c); }
+};
+
+// texel (r, c) of a slice whose window of rows r0.. and columns c0.. is
+// staged in shared memory, `pitch` elements a row; (r, c) must lie inside
+template <typename T>
+struct StagedTexels {
+    const T* base;
+    int r0, c0, pitch;
+    __device__ __forceinline__ float operator()(int r, int c) const {
+        return (float)base[(r - r0) * pitch + (c - c0)];
+    }
+};
+
+// the texel rows (or columns) a sample at the snapped coordinate `rows`
+// reads, [lo, hi]: the bilinear taps r0 and r1 of sample_at, or its
+// nearest tap, by the same expressions.  Non-decreasing in `rows`.
+template <bool BILINEAR>
+__device__ __forceinline__ int2 tap_span(float rows, int nr) {
+    if (BILINEAR) {
+        const float r0f = floorf(rows);
+        return make_int2(clampi((int)r0f, 0, nr - 1), clampi((int)r0f + 1, 0, nr - 1));
+    }
+    const int r = clampi((int)floorf(rows + 0.5f), 0, nr - 1);
+    return make_int2(r, r);
+}
+
+// one sample of an (nr, nc) slice at snapped texel coordinates, clamp-to-edge,
+// its texels read through `tx`
+template <bool BILINEAR, typename Texels>
+__device__ __forceinline__ float sample_at(const Texels& tx, float rows, float cols, int nr, int nc) {
     if (BILINEAR) {
         const float r0f = floorf(rows), c0f = floorf(cols);
         const float tr = rows - r0f, tc = cols - c0f;
         const int r0 = clampi((int)r0f, 0, nr - 1), r1 = clampi((int)r0f + 1, 0, nr - 1);
         const int c0 = clampi((int)c0f, 0, nc - 1), c1 = clampi((int)c0f + 1, 0, nc - 1);
-        const float v00 = texel(sl, r0 * nc + c0), v01 = texel(sl, r0 * nc + c1);
-        const float v10 = texel(sl, r1 * nc + c0), v11 = texel(sl, r1 * nc + c1);
+        const float v00 = tx(r0, c0), v01 = tx(r0, c1);
+        const float v10 = tx(r1, c0), v11 = tx(r1, c1);
         const float ur = 1.0f - tr, uc = 1.0f - tc;
         return v00 * ur * uc + v01 * ur * tc + v10 * tr * uc + v11 * tr * tc;
     } else {
-        return texel(sl, nearest_index(rows, cols, nr, nc));
+        const int r = clampi((int)floorf(rows + 0.5f), 0, nr - 1);
+        const int c = clampi((int)floorf(cols + 0.5f), 0, nc - 1);
+        return tx(r, c);
     }
+}
+
+// one sample of an (nr, nc) slice in global memory
+template <bool BILINEAR, typename T>
+__device__ __forceinline__ float sample(const T* __restrict__ sl, float rows, float cols, int nr, int nc) {
+    return sample_at<BILINEAR>(GlobalTexels<T>{sl, nc}, rows, cols, nr, nc);
 }
 
 // transpose of sample<>: add v times the sample's bilinear (4 taps) or box
@@ -176,8 +220,9 @@ __device__ __forceinline__ float plain_row(const T* __restrict__ vol, int j, flo
 // The sliding window of plain rows d[o + 3] = row clamp(j + o) to [0, n-1],
 // o in [-3, 3], for march step j.  Call advance() at every step j from the
 // first one the ray reaches on, in order: the first call samples the 7
-// rows, every later one shifts and samples row j + 3 (beyond the sweep the
-// end row, already held).
+// rows (prime), every later one shifts and samples row j + 3 (push; beyond
+// the sweep the end row, already held).  A caller that samples row j + 3
+// itself calls prime() and push() with that sample instead.
 template <bool BILINEAR, typename T>
 struct SmoothWindow {
     float d[SMOOTH_ROWS];
@@ -185,22 +230,31 @@ struct SmoothWindow {
 
     __device__ __forceinline__ SmoothWindow() : primed(false) {}
 
+    __device__ __forceinline__ void prime(const T* __restrict__ vol, int j, float rs, float rb, float cs, float cb,
+                                          int n, int nr, int nc, int sign, int subtexel) {
+#pragma unroll
+        for (int o = 0; o < SMOOTH_ROWS; ++o) {
+            d[o] = plain_row<BILINEAR>(vol, clampi(j + o - SMOOTH_HALO, 0, n - 1), rs, rb, cs, cb, n, nr, nc, sign,
+                                       subtexel);
+        }
+        primed = true;
+    }
+
+    // shift, taking `row` (plain row j + 3) where j + 3 lies in the sweep
+    __device__ __forceinline__ void push(int j, int n, float row) {
+#pragma unroll
+        for (int o = 0; o < SMOOTH_ROWS - 1; ++o) d[o] = d[o + 1];
+        if (j + SMOOTH_HALO <= n - 1) d[SMOOTH_ROWS - 1] = row;
+    }
+
     __device__ __forceinline__ void advance(const T* __restrict__ vol, int j, float rs, float rb, float cs, float cb,
                                             int n, int nr, int nc, int sign, int subtexel) {
         if (!primed) {
-#pragma unroll
-            for (int o = 0; o < SMOOTH_ROWS; ++o) {
-                d[o] = plain_row<BILINEAR>(vol, clampi(j + o - SMOOTH_HALO, 0, n - 1), rs, rb, cs, cb, n, nr, nc,
-                                           sign, subtexel);
-            }
-            primed = true;
-            return;
-        }
-#pragma unroll
-        for (int o = 0; o < SMOOTH_ROWS - 1; ++o) d[o] = d[o + 1];
-        if (j + SMOOTH_HALO <= n - 1) {
-            d[SMOOTH_ROWS - 1] =
-                plain_row<BILINEAR>(vol, j + SMOOTH_HALO, rs, rb, cs, cb, n, nr, nc, sign, subtexel);
+            prime(vol, j, rs, rb, cs, cb, n, nr, nc, sign, subtexel);
+        } else if (j + SMOOTH_HALO <= n - 1) {
+            push(j, n, plain_row<BILINEAR>(vol, j + SMOOTH_HALO, rs, rb, cs, cb, n, nr, nc, sign, subtexel));
+        } else {
+            push(j, n, 0.0f);
         }
     }
 };

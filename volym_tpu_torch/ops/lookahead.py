@@ -6,7 +6,9 @@ Counterpart of :mod:`volym_tpu.ops.lookahead_kernel`.  The TPU kernels
 reverse over (ray chunk, slab block) pairs, sampling it with box-hat
 matrix products, and emit one float32 per (march step, ray).  The CUDA
 kernels (``csrc/lookahead.cu``) run one thread per ray over the march
-steps in reverse, read a uint8 level grid
+steps in reverse (the cone kernel after a pass that bounds each slice's
+important texels, so that most probes take no tap), read a uint8 level
+grid
 (:func:`volym_tpu_torch.render.slab.importance_levels`) with direct loads,
 and emit one bit per (march step, ray), 32 steps to a word.  What they keep
 is the semantics of :func:`volym_tpu_torch.render.slab.lookahead_gate`,
@@ -45,17 +47,35 @@ def unpack_gate(words: torch.Tensor, n: int) -> torch.Tensor:
     return bits.reshape(-1, *words.shape[1:])[:n].bool()
 
 
-def _library():
-    from volym_tpu_torch.ops import _build
-
-    lib = _build.library("lookahead")
+def _bind(lib: ctypes.CDLL):
+    """The gate's C entry of a loaded kernel library, its types set."""
     fn = lib.lookahead_launch
     if fn.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        fn.argtypes = [p] * 4 + [i] * 7 + [p]
+        fn.argtypes = [p] * 4 + [i] * 7 + [p, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _library():
+    from volym_tpu_torch.ops import _build
+
+    return _bind(_build.library("lookahead"))
+
+
+def cone_occupancy() -> tuple[int, int]:
+    """(resident blocks per SM, threads a block) of the cone gate kernel on
+    the current device, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    from volym_tpu_torch.ops import _build
+
+    fn = _build.library("lookahead").lookahead_cone_occupancy
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    threads = ctypes.c_int(0)
+    blocks = fn(ctypes.byref(threads))
+    if blocks < 0:
+        raise RuntimeError("cudaOccupancyMaxActiveBlocksPerMultiprocessor failed for the cone gate kernel")
+    return blocks, threads.value
 
 
 def gate_cuda(
@@ -87,12 +107,14 @@ def gate_cuda(
         raise ValueError(f"cone_feats must be float32 ({CONE_FEATURES}, {height}, {width})")
     n, nr, nc = levels.shape
     out = torch.empty((gate_words(n), height, width), dtype=torch.int32, device=dev)
+    # the cone kernel's first pass: each slice's important rows and columns
+    bounds = torch.empty((n, 4), dtype=torch.int32, device=dev) if cone_feats is not None else None
     fn = _library()
     with torch.cuda.device(dev):
         rc = fn(
             feats.data_ptr(), cone_feats.data_ptr() if cone_feats is not None else None,
             levels.data_ptr(), out.data_ptr(), height, width, n, nr, nc, int(sign), int(subtexel),
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream, bounds.data_ptr() if bounds is not None else None,
         )
     if rc != 0:
         raise RuntimeError(f"lookahead kernel launch failed with CUDA error {rc}")

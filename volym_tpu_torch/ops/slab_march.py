@@ -8,12 +8,13 @@ look-ahead gate of :mod:`volym_tpu_torch.ops.lookahead`, and, through
 look-ahead).
 The TPU kernel ``_march_kernel`` samples with hat-matrix products
 on the MXU over a grid of (ray chunk, slab block) pairs; the CUDA kernel
-(``csrc/slab_march.cu``) marches one ray per thread with direct texel
-loads and needs none of that machinery: no pair grid, tile order, window
-ladders, grouped LUT or VMEM sizing.  What it keeps is the semantics: the
-per-ray affine table computed once in torch (:func:`features_from_rays`),
-the subtexel snap, the masks, the smoothing stencil and the u8 scaled
-density domain.
+(``csrc/slab_march.cu``) marches a tile of rays a block, one ray a thread,
+in batches of steps whose slab windows it stages in shared memory
+(:func:`stage_plan` transcribes how it picks them), and needs none of the
+TPU's machinery: no pair grid, tile order, window ladders, grouped LUT or
+VMEM sizing.  What it keeps is the semantics: the per-ray affine table
+computed once in torch (:func:`features_from_rays`), the subtexel snap, the
+masks, the smoothing stencil and the u8 scaled density domain.
 
 :func:`march` dispatches on the device of its tensors: CPU tensors go to
 the plain version :func:`volym_tpu_torch.render.slab.march_slabs`; CUDA
@@ -23,6 +24,7 @@ tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -39,9 +41,13 @@ from volym_tpu_torch.render.slab import (
 #: launches of the CUDA march kernel in this process (see :func:`march_cuda`)
 LAUNCHES = 0
 
-#: the largest LUT the kernel stages in shared memory (48 KB: the dynamic
-#: shared memory a block gets without opting in to more)
+#: the largest LUT the kernel stages in shared memory (48 KB)
 MAX_LUT_ENTRIES = 48 * 1024 // 16
+
+#: the CUDA march's tile of rays a block (width, height), steps a batch on
+#: the f32 and the u8 stream, and bytes of each of its two stage buffers
+#: (csrc/slab_march.cu's defaults)
+MARCH_TILE_W, MARCH_TILE_H, MARCH_BATCH, MARCH_BATCH_U8, STAGE_BYTES = 16, 16, 8, 16, 16384
 
 
 def features_from_rays(origin, dirs, entry, exit_, n_slabs: int, major: int, sign: int, n_plane=None) -> torch.Tensor:
@@ -124,10 +130,152 @@ def check_supported(params: RenderParams) -> None:
         )
 
 
-def _library():
-    from volym_tpu_torch.ops import _build
+@dataclass(frozen=True)
+class StagePlan:
+    """The CUDA march's plan of a launch, (batch, block) tensors: whether
+    the block composites the batch (``visited``), its density and gradient
+    windows (``dens_box``/``grad_box``: (..., 4) int64 rows r0..r1, columns
+    c0..c1, inclusive; ``r0 > r1`` when nothing is read) and whether each
+    is staged in shared memory or read from global memory.  Blocks are
+    numbered row-major over the image's tiles."""
 
-    lib = _build.library("slab_march")
+    visited: torch.Tensor
+    dens_box: torch.Tensor
+    grad_box: torch.Tensor
+    dens_staged: torch.Tensor
+    grad_staged: torch.Tensor
+
+    def counts(self) -> tuple[int, int]:
+        """(staged, direct): the visited (block, batch) pairs that read
+        densities, by the route their density window takes."""
+        reads = self.visited & (self.dens_box[..., 0] <= self.dens_box[..., 1])
+        return int((reads & self.dens_staged).sum()), int((reads & ~self.dens_staged).sum())
+
+
+def _tiles(v: torch.Tensor, tile: tuple[int, int], fill) -> torch.Tensor:
+    """(..., H, W) -> (..., blocks, tile rays), the image padded with
+    ``fill`` to whole tiles, blocks row-major and rays row-major in a tile."""
+    tw, th = tile
+    height, width = v.shape[-2:]
+    ph, pw = -height % th, -width % tw
+    v = torch.nn.functional.pad(v, (0, pw, 0, ph), value=fill) if ph or pw else v
+    by, bx = v.shape[-2] // th, v.shape[-1] // tw
+    v = v.reshape(*v.shape[:-2], by, th, bx, tw).movedim(-3, -2)
+    return v.reshape(*v.shape[:-4], by * bx, th * tw)
+
+
+def _spans(s: torch.Tensor, b: torch.Tensor, steps: torch.Tensor, n_tex: int, bits: int, bilinear: bool):
+    """The texel span [lo, hi] a sample at march step ``steps`` reads
+    along one axis: the kernel's tap_span of its snapped coordinate."""
+    c = slab_mod.snap(torch.clamp(s * steps.float() + b, 0.0, n_tex - 1.0), bits)
+    if bilinear:
+        f = torch.floor(c)
+        return torch.clamp(f, 0, n_tex - 1).long(), torch.clamp(f + 1, 0, n_tex - 1).long()
+    r = torch.clamp(torch.floor(c + 0.5), 0, n_tex - 1).long()
+    return r, r
+
+
+def _block_box(rs, rb, cs, cb, lo, hi, reads, n_tex, bits, bilinear):
+    """The block's box of the samples at steps lo..hi of the rays where
+    ``reads``: (blocks, 4) int64, empty (r0 > r1) where no ray reads."""
+    big = torch.iinfo(torch.int64).max
+    ra, rz = _spans(rs, rb, lo, n_tex[0], bits, bilinear), _spans(rs, rb, hi, n_tex[0], bits, bilinear)
+    ca, cz = _spans(cs, cb, lo, n_tex[1], bits, bilinear), _spans(cs, cb, hi, n_tex[1], bits, bilinear)
+    parts = [(torch.minimum(ra[0], rz[0]), big, torch.amin), (torch.maximum(ra[1], rz[1]), -1, torch.amax),
+             (torch.minimum(ca[0], cz[0]), big, torch.amin), (torch.maximum(ca[1], cz[1]), -1, torch.amax)]
+    return torch.stack([red(torch.where(reads, v, fill), dim=-1) for v, fill, red in parts], dim=-1)
+
+
+def _staged(box, slices: int, elem: int, offset, cap: int, can_stage: bool):
+    """(fits, bytes): whether ``slices`` slices of a box's window, its rows
+    in 16-byte chunks from ``offset``, fit a stage buffer of ``cap`` bytes."""
+    b0 = (box[..., 2] * elem) & ~15
+    b1 = ((box[..., 3] + 1) * elem + 15) & ~15
+    nbytes = slices * (box[..., 1] - box[..., 0] + 1) * (b1 - b0)
+    fits = (box[..., 0] <= box[..., 1]) & (offset + nbytes <= cap) & can_stage
+    return fits, torch.where(fits, nbytes, 0)
+
+
+def stage_plan(feats: torch.Tensor, vol_shape, u8: bool, params: RenderParams, stop: torch.Tensor | None = None,
+               tile: tuple[int, int] = (MARCH_TILE_W, MARCH_TILE_H), batch: int | None = None,
+               stage_bytes: int = STAGE_BYTES, can_stage: bool = True) -> StagePlan:
+    """A transcription of how the CUDA march (csrc/slab_march.cu) plans
+    its batches, in torch: which (block, batch) pairs it composites, the
+    window of texels each batch's samples can read (the steps of each ray's
+    t-window bounds, ``floor((entry - tb) / ts) - 1`` to ``floor((exit -
+    tb) / ts) + 1``), and whether the window is staged in shared memory or
+    read from global memory.
+
+    ``stop``: (H, W) the march step at whose start each ray's alpha has
+    reached the early-termination alpha (None: never).  The kernel learns
+    it only by compositing, so a plan made without it has every window at
+    least as large as the kernel's, and at least as many pairs.
+    ``can_stage``: the volume's rows start on 16 bytes (the kernel's
+    launch tests the pointers too).  ``batch``: steps a batch (default the
+    kernel's for the stream)."""
+    f = feats.reshape(N_FEATURES, *feats.shape[-2:])
+    batch = batch or (MARCH_BATCH_U8 if u8 else MARCH_BATCH)
+    n, nr, nc = vol_shape
+    bilinear = params.interpolation == Interpolation.TRILINEAR
+    halo = slab_mod.SMOOTH_HALO if params.use_gaussian_smoothing else 0
+    bits = params.subtexel_bits
+    elem = 1 if u8 else 4
+    in_image = _tiles(torch.ones(f.shape[1:], dtype=torch.bool, device=f.device), tile, False)
+    rows = {i: _tiles(f[i], tile, 0.0) for i in (F_RS, F_RB, F_CS, F_CB, F_TS, F_TB, F_ENTRY, F_EXIT, F_SIGNOK)}
+    entry, exit_, ts, tb = rows[F_ENTRY], rows[F_EXIT], rows[F_TS], rows[F_TB]
+    coef = (rows[F_RS], rows[F_RB], rows[F_CS], rows[F_CB])
+    live = in_image & ~(exit_ <= entry) & (rows[F_SIGNOK] > 0.5)
+    stop = (torch.full_like(ts, n, dtype=torch.int64) if stop is None
+            else _tiles(stop.reshape(f.shape[1:]).long(), tile, n))
+    # bounds of each ray's t-window in steps, (entry - tb) / ts and
+    # (exit - tb) / ts floored, less and plus one; the first batch is the
+    # block's least first step's
+    e = torch.floor((entry - tb) / ts) - 1.0
+    first = torch.where(e > 0.0, torch.where(e < float(n), e, float(n)), 0.0).long()
+    e = torch.floor((exit_ - tb) / ts) + 1.0
+    last = torch.where(e < float(n - 1), torch.where(e > -1.0, e, -1.0), float(n - 1)).long()
+    big = torch.iinfo(torch.int64).max
+    b_first = torch.where(live, first, big).amin(-1) // batch
+    n_batches = -(-n // batch)
+    q = torch.arange(batch, device=f.device)
+    done = ~live  # at the start of batch b
+    done_prev = done  # at the start of batch b - 1, what the plan of batch b takes
+    out = {k: [] for k in ("visited", "dens_box", "grad_box", "dens_staged", "grad_staged")}
+    for b in range(n_batches):
+        steps = b * batch + q  # (K,)
+        started = b >= b_first
+        visited = started & (~done).any(-1)
+        # the plan of batch b, over the rays alive at the start of batch b - 1:
+        # the steps of their t-window bounds in the batch
+        jlo = torch.clamp(first, min=b * batch)
+        jhi = torch.clamp(last, max=min(b * batch + batch, n) - 1)
+        any_q = ~done_prev & (jlo <= jhi)
+        dens_reads = any_q & (jlo + halo <= n - 1)
+        dens_box = _block_box(*coef, torch.where(dens_reads, jlo + halo, 0),
+                              torch.where(dens_reads, torch.clamp(jhi + halo, max=n - 1), 0), dens_reads, (nr, nc),
+                              bits, bilinear)
+        grad_box = dens_box
+        if halo:
+            grad_box = _block_box(*coef, torch.where(any_q, jlo, 0), torch.where(any_q, jhi, 0), any_q, (nr, nc), bits,
+                                  bilinear)
+        dens_staged, dens_bytes = _staged(dens_box, batch, elem, 0, stage_bytes, can_stage)
+        grad_staged = torch.zeros_like(dens_staged)
+        if params.use_shading:
+            dens_any = dens_box[..., 0] <= dens_box[..., 1]
+            grad_staged, _ = _staged(grad_box, 3 * batch, 4, dens_bytes, stage_bytes, can_stage)
+            grad_staged &= dens_staged | ~dens_any
+        for k, v in (("visited", visited), ("dens_box", dens_box), ("grad_box", grad_box),
+                     ("dens_staged", dens_staged), ("grad_staged", grad_staged)):
+            out[k].append(v)
+        # composite batch b: a ray is done at its first step past its exit or its stop
+        t = ts[None] * steps[:, None, None].float() + tb[None]
+        ends = ((steps[:, None, None] < n) & ((t >= exit_[None]) | (steps[:, None, None] >= stop[None]))).any(0)
+        done_prev, done = done, done | (visited[:, None] & ends)
+    return StagePlan(**{k: torch.stack(v) for k, v in out.items()})
+
+
+def _bind(lib: ctypes.CDLL):
+    """The march's C entry of a loaded kernel library, its types set."""
     fn = lib.slab_march_launch
     if fn.argtypes is None:
         p = ctypes.c_void_p
@@ -136,6 +284,12 @@ def _library():
         fn.argtypes = [p] * 7 + [i] * 13 + [f, f, f, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _library():
+    from volym_tpu_torch.ops import _build
+
+    return _bind(_build.library("slab_march"))
 
 
 def march_cuda(
