@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Drive volym_tpu_torch once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR ...]
 
-``--parent DIR``: DIR is a checkout of another commit; its march (B1) and
-gate (B6, B7) kernels are built from its sources and timed beside this
-checkout's on the same inputs in every cell where they run (before /
-after, one process, one card).
+``--parent DIR``: DIR is a checkout of another commit; its march (B1),
+replay (B2) and gate (B6, B7) kernels are built from its sources and timed
+beside this checkout's on the same inputs in every cell and route where
+they run (before / after, one process, one card).  B2 is timed with the
+allocations that checkout's wrapper made (a zero-filled ``dd`` before the
+replay wrote only each ray's step range, see ``Before``).  Given more than
+once, every checkout is timed, and the B2 line gives the share of the
+first one's time that each later one (say, a copy of it with one part of
+its kernel taken out) and the first one's zero-fill of ``dd`` save.
 
 Phases, in order; any failure ends the run with a nonzero exit:
 
@@ -16,8 +21,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    voxel-gradient scatters (B3 and B4, one source, fused with the smoothing
    stencil's transpose and without it), the plain rows' camera chain (B5)
    and the look-ahead gate (B6 straight and B7 cone, one source); print
-   ptxas's registers and spills of every march and gate kernel, and B7's
-   occupancy (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+   ptxas's registers and spills of every march, replay and gate kernel,
+   and B7's occupancy (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 3. hold the kernels to their plain PyTorch versions on the card: 64^3
    synthetic bonsai, 96x64 rays, every (major axis, sign) view x {nearest,
    trilinear} x {u8 native planes, f32 resampled planes} x {shaded,
@@ -32,8 +37,12 @@ Phases, in order; any failure ends the run with a nonzero exit:
    planes), 96x64 rays, every view x {nearest, trilinear} x {u8 native 256
    planes, f32 resampled 128 planes} x {shaded, unshaded}: the march with
    its residual, bit for bit (48), the unfused replay from the residual and
-   re-sampled (96), whose two routes must give the same cotangents bit for
-   bit and whose step range must equal the plain one bit for bit, the
+   re-sampled (96), whose cotangents ``dd`` are held on each ray's step
+   range (``slab.dense_dd``: the kernel writes nothing outside it), whose
+   two routes must give the same cotangents bit for bit and whose step
+   range must equal the plain one bit for bit (the plain ``dd`` must be 0.0
+   outside it; the cases with ``dd`` bit-equal to the plain one are
+   counted), the
    scatters B3 (unshaded) and B4 (shaded) without the fold on the folded
    cotangents (48), and the fused fold-and-scatter on the replay's
    cotangents and step range (48: every view x {nearest, trilinear} x
@@ -91,7 +100,10 @@ Phases, in order; any failure ends the run with a nonzero exit:
    scatter without the fold and B2's cotangents and step range on both
    routes against their plain versions; the step ranges' statistics (the
    rows walked, the dd entries in range, the nonzero entries, N x R) are
-   printed; B1 with smoothing and its residual, B2 unfused on each route, the
+   printed (on ``slab.dense_dd`` of B2's cotangents, as the plain transpose,
+   the plain fold and the scatter without the fold read them); B1 with
+   smoothing and its residual, B2 unfused on each route (with its bound on
+   each route, and the bound with all of ``dd`` written), the
    fused kernel with 5 chunk sizes (beside ``index_add_`` of the nonzero
    folded entries' precomputed corner indices and weights, and its bound), the
    scatter without the fold and the whole step are timed with CUDA events,
@@ -107,7 +119,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    equal the steps; step 0's image, d_volume, d_lut and camera gradient
    are checked against the plain step, the folded rows the fused kernel
    writes for B5 against the plain transpose's; B2 with and without its
-   camera chain, the fused kernel, B5 (with its bound) and the whole step
+   camera chain (with their bounds), the fused kernel, B5 (with its bound)
+   and the whole step
    are timed with CUDA events beside the step without camera gradients,
    the plain transpose once, and a step is profiled;
 7. descent: 20 Adam steps (lr 1e-2, clamped to [0, 1]) on the volume and
@@ -122,7 +135,11 @@ In phases 3-6 each case and cell where B1 runs also prints how its
 from the transcription of the kernel's plan (``slab_march.stage_plan``) on
 the case's own inputs; the small cases must take both routes.
 
-The third-to-last line gives, for every cell, B1's and B7's ms (and the
+The fourth-to-last line gives B2's ms in every route and cell (fused,
+stored and re-sampled, at 256x256 and 1024x768; unfused, stored and
+re-sampled, in both smoothed cells at both sizes; with and without the
+camera chain in both) beside each ``--parent`` checkout's and its bound;
+the third-to-last line gives, for every cell, B1's and B7's ms (and each
 ``--parent`` checkout's, or null) and B1's staged share, with B7's
 occupancy; the second-to-last line is a JSON summary of the kernels; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -344,7 +361,7 @@ def fold_inputs(feats, dd, steps):
                 nonzero_entries=int((dd != 0.0).sum()), n_x_r=n * rays, sources=sources, channels=channels)
 
 
-def fold_bound(feats, dd, steps, folded_rows, out_tensors, stats):
+def fold_bound(feats, steps, folded_rows, out_tensors, stats):
     """The fused kernel's bound: the in-range dd, the range table and 5 rows
     of the per-ray table read once, its outputs written once; the
     operations of :func:`fold_inputs` with ``folded_rows``, the nonzero
@@ -354,6 +371,31 @@ def fold_bound(feats, dd, steps, folded_rows, out_tensors, stats):
     ops = (stats["rays_with_range"] * FOLD_OPS_PER_RAY + stats["sources"] * (FOLD_OPS_PER_SOURCE + 7 * FOLD_OPS_PER_TERM)
            + (folded_rows + stats["channels"]) * SCATTER_OPS_PER_ENTRY)
     return bound(n_bytes, ops)
+
+
+def replay_bounds(feats, vol, lut, grad, out, g, dens, dd, steps, stats, composited, stencils, d_feats_rows=0,
+                  chain_ops=0):
+    """B2's bound under smoothing on each route (only the re-sampled one
+    without a residual ``dens``): the inputs once (the stored route reads
+    the residual, its nonzero entries: a lower bound; the re-sampled one
+    the volume and the gradient field), the in-range ``dd`` (every channel,
+    ``stats`` of :func:`fold_inputs`), the range table, ``d_lut`` and
+    ``d_feats_rows`` rows of ``d_feats`` written once; the operations of
+    the composited steps (plus ``chain_ops``) and, re-sampled, of the
+    ``stencils`` that run.  Beside each (``... whole dd``) the bound with
+    all of ``dd`` written, as the replay wrote it before it wrote only the
+    ranges."""
+    rays = out.shape[0] * out.shape[1]
+    common = nbytes(feats, lut, out, g, lut, steps) + d_feats_rows * rays * 4
+    ops = composited * REPLAY_OPS_PER_STEP + chain_ops
+    routes = {"re-sampled": (nbytes(vol, grad), ops + stencils * SMOOTH_OPS_PER_STEP)}
+    if dens is not None:
+        routes["stored"] = (int((dens != 0.0).sum()) * 4, ops)
+    res = {}
+    for route, (reads, n_ops) in routes.items():
+        res[route] = bound(common + reads + stats["in_range_entries"] * 4, n_ops)
+        res[f"{route} whole dd"] = bound(common + reads + nbytes(dd), n_ops)
+    return res
 
 
 def device_profile(fn, reps, top=6):
@@ -422,10 +464,10 @@ def unfold(feats, dd, vol_shape, params):
 
 def stencil_steps(feats, vol, sign, params, threshold, sampled) -> int:
     """The sampled steps (``sampled``, (N, rays) bool) whose smoothing
-    stencil can reach ``threshold``.  The march without the residual skips,
-    exactly, the stencil of a step whose 7 plain rows all lie below it
-    (``sample_bound`` in csrc/slab_march.cu), so only these steps count
-    toward its operations bound."""
+    stencil can reach ``threshold``.  The march without the residual and
+    the re-sampled replay skip, exactly, the stencil of a step whose 7
+    plain rows all lie below it (``sample_bound`` in csrc/slab_common.cuh),
+    so only these steps count toward their operations bounds."""
     import torch
 
     from volym_tpu_torch.render import slab
@@ -447,7 +489,8 @@ def ptxas_report(log_text: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            fn = re.search(r"\d+(slab_march_kernel|important_bounds_kernel|lookahead_kernel)", mangled)
+            fn = re.search(r"\d+(slab_march_kernel|slab_replay_kernel|important_bounds_kernel|lookahead_kernel)",
+                           mangled)
             args = "".join(re.findall(r"Lb([01])E", mangled))
             name = (fn.group(1) if fn else mangled[:40]) + (f"<{args}>" if args else "")
             report[name] = [0, 0]
@@ -512,18 +555,29 @@ class KernelSwap:
 
 
 class Before:
-    """The march (B1) and gate (B6, B7) kernels built from another
-    checkout's sources (``--parent DIR``), launched through this checkout's
-    wrappers on the same inputs, so that a kernel's time before a change
-    sits beside its time after it, in one process on one card.  The C
-    entries take the same arguments."""
+    """The march (B1), replay (B2) and gate (B6, B7) kernels built from
+    another checkout's sources (``--parent DIR``), launched through this
+    checkout's wrappers on the same inputs, so that a kernel's time before
+    a change sits beside its time after it, in one process on one card.
+    The C entries take the same arguments.  The replay's ``dd`` is
+    allocated as that checkout's wrapper allocates it: zero-filled, unless
+    its ``ops/slab_replay.py`` allocates with ``ALLOC_DD = torch.empty``
+    (its kernel then writes each ray's step range), so the zero-fill a
+    parent's kernel needs counts in its time."""
 
-    NAMES = ("slab_march", "lookahead")
+    NAMES = ("slab_march", "lookahead", "slab_replay")
 
     def __init__(self, root):
-        self.csrc = Path(root).resolve() / "volym_tpu_torch" / "ops" / "csrc"
+        import torch
+
+        root = Path(root).resolve()
+        self.label = root.name
+        self.csrc = root / "volym_tpu_torch" / "ops" / "csrc"
         if not all((self.csrc / f"{n}.cu").exists() for n in self.NAMES):
-            raise SystemExit(f"chip_smoke: --parent {root} holds no volym_tpu_torch/ops/csrc/{{slab_march,lookahead}}.cu")
+            raise SystemExit(f"chip_smoke: --parent {root} holds no volym_tpu_torch/ops/csrc/"
+                             f"{{{','.join(self.NAMES)}}}.cu")
+        wrapper = (root / "volym_tpu_torch" / "ops" / "slab_replay.py").read_text()
+        self.alloc_dd = torch.empty if "ALLOC_DD = torch.empty" in wrapper else torch.zeros
         self.fns = {}
 
     def build(self, name):
@@ -532,17 +586,25 @@ class Before:
         return _build.build(name, self.csrc)
 
     def load(self, builds):
-        from volym_tpu_torch.ops import lookahead, slab_march
+        from volym_tpu_torch.ops import lookahead, slab_march, slab_replay
 
-        self.modules = {"slab_march": slab_march, "lookahead": lookahead}
+        self.modules = {"slab_march": slab_march, "lookahead": lookahead, "slab_replay": slab_replay}
         for name, built in builds.items():
             self.fns[name] = self.modules[name]._bind(ctypes.CDLL(str(built.path)))
 
-    def ms(self, name, fn, reps):
+    def ms(self, name, fn, reps, alloc_dd=None):
         """``cuda_ms`` of ``fn`` with the module ``name``'s kernel swapped
-        for the other checkout's."""
-        with KernelSwap(self.modules[name], self.fns[name]):
-            return cuda_ms(fn, reps)
+        for the other checkout's (and, for the replay, ``dd`` allocated by
+        ``alloc_dd``, by default as that checkout's wrapper does)."""
+        from volym_tpu_torch.ops import slab_replay
+
+        own_alloc = slab_replay.ALLOC_DD
+        slab_replay.ALLOC_DD = alloc_dd or self.alloc_dd
+        try:
+            with KernelSwap(self.modules[name], self.fns[name]):
+                return cuda_ms(fn, reps)
+        finally:
+            slab_replay.ALLOC_DD = own_alloc
 
 
 def main(argv=None) -> int:
@@ -552,8 +614,9 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Drive volym_tpu_torch once on one NVIDIA GPU and check it.")
-    ap.add_argument("--parent", metavar="DIR",
-                    help="a checkout of another commit: its march and gate kernels are timed beside these")
+    ap.add_argument("--parent", metavar="DIR", action="append", default=[],
+                    help="a checkout of another commit: its march, replay and gate kernels are timed beside these "
+                         "(may be given more than once)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -577,12 +640,12 @@ def main(argv=None) -> int:
     # phase 2: build, one nvcc per source, all at once
     if "arch=compute_90a,code=sm_90a" not in _build.NVCC_FLAGS:
         raise AssertionError("the kernels must be built for sm_90a")
-    parent = Before(args.parent) if args.parent else None
-    with ThreadPoolExecutor(len(SOURCES) + len(Before.NAMES)) as pool:
+    parents = [Before(d) for d in args.parent]
+    with ThreadPoolExecutor(len(SOURCES) + len(parents) * len(Before.NAMES)) as pool:
         own = pool.map(_build.build, SOURCES)
-        theirs = pool.map(parent.build, Before.NAMES) if parent else ()
+        theirs = [pool.map(parent.build, Before.NAMES) for parent in parents]
         builds = dict(zip(SOURCES, own))
-        before_builds = dict(zip(Before.NAMES, theirs))
+        before_builds = [dict(zip(Before.NAMES, t)) for t in theirs]
     for name, built in builds.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", built.log)]
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", built.log))
@@ -594,10 +657,29 @@ def main(argv=None) -> int:
     per_sm = torch.cuda.get_device_properties(0).max_threads_per_multi_processor
     cone_occupancy = dict(blocks_per_sm=blocks, threads_per_block=threads, occupancy=blocks * threads / per_sm)
     log(f"B7 occupancy (cudaOccupancyMaxActiveBlocksPerMultiprocessor): {json.dumps(cone_occupancy)}")
-    if parent:
-        parent.load(before_builds)
-        for name, built in before_builds.items():
-            log(f"build --parent {name} in {built.seconds:.1f} s; ptxas: {json.dumps(ptxas_report(built.log))}")
+    for parent, built_by_name in zip(parents, before_builds):
+        parent.load(built_by_name)
+        for name, built in built_by_name.items():
+            log(f"build --parent {parent.label} {name} in {built.seconds:.1f} s; "
+                f"ptxas: {json.dumps(ptxas_report(built.log))}")
+
+    def parent_ms(name, fn, reps, **kwargs):
+        """The kernel ``name``'s ms in each ``--parent`` checkout on the
+        same inputs (a list in their order), or None without one."""
+        return [parent.ms(name, fn, reps, **kwargs) for parent in parents] if parents else None
+
+    b2 = {}  # B2's ms per route and cell: this checkout's and each --parent's
+
+    def time_replay(cell, fn, smooth=False):
+        """B2's ms over 10 calls of ``fn`` (the wrapper's allocations
+        included), kept in ``b2[cell]`` beside each ``--parent``'s and, under
+        smoothing, each ``--parent``'s kernel with ``dd`` by ``torch.empty``
+        (no zero-fill)."""
+        row = dict(ms=cuda_ms(fn, 10), before=parent_ms("slab_replay", fn, 10))
+        if smooth and parents:
+            row["before_empty"] = parent_ms("slab_replay", fn, 10, alloc_dd=torch.empty)
+        b2[cell] = row
+        return row["ms"]
 
     # phase 3: kernels vs plain versions, small
     err = dict.fromkeys(KERNELS, 0.0)  # the largest absolute error
@@ -752,7 +834,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     scene = Scene.synthetic("bonsai", side=FULL_SIDE, seed=0, device=dev)
     log(f"scene: {FULL_SIDE}^3 synthetic bonsai made in {time.perf_counter() - t0:.1f} s")
-    n_smooth, n_smooth_replay, n_scatter, n_engaged, n_fold = 0, 0, 0, 0, 0
+    n_smooth, n_smooth_replay, n_scatter, n_engaged, n_fold, n_dd_bits = 0, 0, 0, 0, 0, 0
     fold_rows = [0, 0]  # folded rows with one source an offset: bit-equal, compared
     for h, v in ORBITS:
         cam = Camera(aspect=SMALL_W / SMALL_H, distance=1.3).orbit(h, v, 0.0).matrices()
@@ -785,18 +867,22 @@ def main(argv=None) -> int:
 
                     plain_dd, plain_steps, plain_lut = slab.replay_slabs(feats, vol, lut, sign, p, img, g_small, grad,
                                                                          u8, dens)
+                    if not torch.equal(slab.dense_dd(plain_dd, plain_steps), plain_dd):
+                        raise AssertionError(f"{label}: the plain dd is not 0.0 outside its step range")
                     routes = {}
                     for route, d in (("stored", dens), ("re-sampled", None)):
                         dd, steps, d_lut = slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g_small, grad, u8, d)
                         torch.cuda.synchronize()
+                        if not torch.equal(plain_steps, steps):
+                            raise AssertionError(f"{label} {route}: the step range differs from the plain replay's")
+                        # the kernel writes dd only inside each ray's step range
+                        dd = slab.dense_dd(dd, steps)
                         if not (bool(torch.isfinite(dd).all()) and bool(torch.isfinite(d_lut).all())):
                             raise AssertionError(f"{label} {route}: non-finite")
                         hold("slab_replay", plain_dd, dd, f"{label} {route} dd")
                         hold("slab_replay", plain_lut, d_lut, f"{label} {route} d_lut", lut)
-                        if not torch.equal(plain_steps, steps):
-                            raise AssertionError(f"{label} {route}: the step range differs from the plain replay's")
                         routes[route] = dd
-                        n_smooth_replay += 1
+                        n_smooth_replay, n_dd_bits = n_smooth_replay + 1, n_dd_bits + torch.equal(plain_dd, dd)
                     if not torch.equal(routes["stored"], routes["re-sampled"]):
                         raise AssertionError(f"{label}: the two replay routes give different cotangents")
 
@@ -832,7 +918,8 @@ def main(argv=None) -> int:
                     n_fold += 1
     log(f"small smoothing: march with residual == plain bit for bit in {n_smooth}/48 cases (smoothing changed "
         f"the image in {n_engaged}); unfused replay == plain in {n_smooth_replay}/96, stored and re-sampled, the "
-        f"two routes bit for bit, the step range bit for bit; B3/B4 without the fold == plain in {n_scatter}/48 and "
+        f"two routes bit for bit, the step range bit for bit, dd on it bit for bit in {n_dd_bits}; B3/B4 without "
+        f"the fold == plain in {n_scatter}/48 and "
         f"fused with the fold == plain in {n_fold}/48 (max abs err {err['voxel_grad']:.3e} / "
         f"{err['voxel_grad_shaded']:.3e}, over its scale {rel['voxel_grad']:.3e} / {rel['voxel_grad_shaded']:.3e}); "
         f"folded rows with one source an offset bit for bit: {fold_rows[0]}/{fold_rows[1]}; B1's (block, batch) "
@@ -866,6 +953,8 @@ def main(argv=None) -> int:
                     want = slab.replay_slabs(feats, vol, lut, sign, p, img, g_small, grad)
                     got = slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g_small, grad)
                     torch.cuda.synchronize()
+                    if smooth:  # the kernel writes dd only inside each ray's step range
+                        got = (slab.dense_dd(got[0], got[1]), *got[1:])
                     if not all(bool(torch.isfinite(t).all()) for t in got if t is not None):
                         raise AssertionError(f"{label}: non-finite")
                     if float(want[-1].abs().max()) <= 0.0:
@@ -954,8 +1043,8 @@ def main(argv=None) -> int:
 
         feats, vol, lut, sign, grad, u8 = slab_march.prepare(scene, cm0, p, FULL_H, FULL_W)
         march_ms = cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8), 20)
-        march_before_ms = parent.ms("slab_march", lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad,
-                                                                                 u8=u8), 20) if parent else None
+        march_before_ms = parent_ms(
+            "slab_march", lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8), 20)
         plain_march_ms = cuda_ms(lambda: slab.march_slabs(feats, vol, lut, sign, p, grad, u8=u8), 3)
         frame_ms = cuda_ms(lambda: renderers[name](cm0), 10)
         plain_frame_ms = cuda_ms(lambda: slab_march.render(scene, cm0, p, FULL_H, FULL_W, march_fn=slab.march_slabs), 3)
@@ -1054,7 +1143,7 @@ def main(argv=None) -> int:
             base_img = slab_march.render(teapot, cm0, p.replace(use_importance_rendering=False), FULL_H, FULL_W)
             row.update(
                 kernel=kernel, gate_ms=cuda_ms(lambda: lookahead.gate_cuda(*gate_args), 20),
-                gate_before_ms=parent.ms("lookahead", lambda: lookahead.gate_cuda(*gate_args), 20) if parent else None,
+                gate_before_ms=parent_ms("lookahead", lambda: lookahead.gate_cuda(*gate_args), 20),
                 plain_gate_ms=cuda_ms(lambda: slab.lookahead_gate(*gate_args), 2),
                 gate_bound_ms=gate_bound[0], gate_bound_by=gate_bound[1], gate_mib=words.numel() * 4 / 2**20,
                 set_bit_share=float(plain_gate.float().mean()),
@@ -1071,8 +1160,7 @@ def main(argv=None) -> int:
         plane = None if words is None else lookahead.unpack_gate(words, vol.shape[0])
         row.update(
             march_ms=cuda_ms(lambda: slab_march.march_cuda(*march_args, u8=u8, gate=words), 20),
-            march_before_ms=parent.ms("slab_march", lambda: slab_march.march_cuda(*march_args, u8=u8, gate=words),
-                                      20) if parent else None,
+            march_before_ms=parent_ms("slab_march", lambda: slab_march.march_cuda(*march_args, u8=u8, gate=words), 20),
             stage=staged_pairs(feats, vol, grad, u8, p),
             plain_march_ms=cuda_ms(lambda: slab.march_slabs(*march_args, u8, gate=plane), 2),
             frame_ms=cuda_ms(lambda: la_renderers[name](cm0), 10), plain_frame_ms=cuda_ms(plain_frame, 1),
@@ -1150,11 +1238,13 @@ def main(argv=None) -> int:
         out, dens = slab_march.march_cuda(feats, vol, lut, sign, train_p, u8=u8, emit_density=True)
         g = torch.ones_like(out)
         fwd_ms = cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, train_p, u8=u8, emit_density=True), 10)
-        fwd_before_ms = parent.ms("slab_march", lambda: slab_march.march_cuda(
-            feats, vol, lut, sign, train_p, u8=u8, emit_density=True), 10) if parent else None
+        fwd_before_ms = parent_ms("slab_march", lambda: slab_march.march_cuda(
+            feats, vol, lut, sign, train_p, u8=u8, emit_density=True), 10)
         zero_ms = cuda_ms(lambda: torch.zeros_like(dens), 10)
-        replay_ms = cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, train_p, out, g, None, u8, dens), 10)
-        replay_resampled_ms = cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, train_p, out, g, None, u8), 10)
+        replay_ms = time_replay(f"fused {h}x{w} stored", lambda: slab_replay.replay_cuda(
+            feats, vol, lut, sign, train_p, out, g, None, u8, dens))
+        replay_resampled_ms = time_replay(f"fused {h}x{w} re-sampled", lambda: slab_replay.replay_cuda(
+            feats, vol, lut, sign, train_p, out, g, None, u8))
 
         def kernel_step():
             s.volume.grad = s.tf_lut.grad = None
@@ -1173,17 +1263,21 @@ def main(argv=None) -> int:
         read = int((dens != 0.0).sum())
         fwd_bound = bound(nbytes(feats, vol, lut, out, dens), composited * MARCH_OPS_PER_STEP)
         # inputs once, the residual where the replay reads it (the nonzero
-        # entries: a lower bound), the d_vol and d_lut outputs once
+        # entries: a lower bound) or the volume, the d_vol and d_lut
+        # outputs once
         replay_bound = bound(
             nbytes(feats, lut, out, g) + read * 4 + (vol.numel() + lut.numel()) * 4,
             composited * REPLAY_OPS_PER_STEP,
         )
+        replay_resampled_bound = bound(
+            nbytes(feats, vol, lut, out, g) + (vol.numel() + lut.numel()) * 4, composited * REPLAY_OPS_PER_STEP)
         training[f"{h}x{w}"] = dict(
             planes=int(vol.shape[0]), stored=stored, residual_mib=dens.numel() * 4 / 2**20,
             fwd_residual_ms=fwd_ms, fwd_residual_before_ms=fwd_before_ms,
             stage=staged_pairs(feats, vol, None, u8, train_p), fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1], zero_fill_ms=zero_ms,
             replay_ms=replay_ms, replay_resampled_ms=replay_resampled_ms, plain_replay_ms=plain_replay_ms,
             replay_bound_ms=replay_bound[0], replay_bound_by=replay_bound[1],
+            replay_resampled_bound=replay_resampled_bound,
             step_ms=step_ms, plain_step_ms=plain_step_ms,
             rays_per_s=rays / (step_ms / 1e3), plain_rays_per_s=rays / (plain_step_ms / 1e3),
             composited_steps=composited, step0=agree, profile=busy,
@@ -1296,10 +1390,13 @@ def main(argv=None) -> int:
         out, dens = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, emit_density=True)
         g = torch.ones_like(out)
         dd, steps, _ = slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8, dens)
-        dd0 = dd[:, 0] if shaded else dd
+        # the kernel writes dd only inside each ray's step range: the plain
+        # transpose and the scatter without the fold read all of it
+        dense = slab.dense_dd(dd, steps)
+        dense0 = dense[:, 0] if shaded else dense
         bilinear = p.interpolation.value == "trilinear"
-        folded = unfold(feats, dd, vol.shape, p)
-        stats = fold_inputs(feats, dd, steps)
+        folded = unfold(feats, dense, vol.shape, p)
+        stats = fold_inputs(feats, dense, steps)
         row = dict(
             planes=int(vol.shape[0]), u8=u8, shading=shaded, interpolation=p.interpolation.value,
             route="stored" if stored else "re-sampled", residual_mib=dens.numel() * 4 / 2**20,
@@ -1307,13 +1404,15 @@ def main(argv=None) -> int:
             fwd_residual_ms=cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8,
                                                                   emit_density=True), 10),
             fwd_ms=cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8), 10),
-            fwd_residual_before_ms=parent.ms("slab_march", lambda: slab_march.march_cuda(
-                feats, vol, lut, sign, p, grad, u8=u8, emit_density=True), 10) if parent else None,
-            fwd_before_ms=parent.ms("slab_march", lambda: slab_march.march_cuda(
-                feats, vol, lut, sign, p, grad, u8=u8), 10) if parent else None,
+            fwd_residual_before_ms=parent_ms("slab_march", lambda: slab_march.march_cuda(
+                feats, vol, lut, sign, p, grad, u8=u8, emit_density=True), 10),
+            fwd_before_ms=parent_ms("slab_march", lambda: slab_march.march_cuda(
+                feats, vol, lut, sign, p, grad, u8=u8), 10),
             stage=staged_pairs(feats, vol, grad, u8, p),
-            replay_stored_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8, dens), 10),
-            replay_resampled_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8), 10),
+            replay_stored_ms=time_replay(f"unfused {name} {h}x{w} stored", lambda: slab_replay.replay_cuda(
+                feats, vol, lut, sign, p, out, g, grad, u8, dens), smooth=True),
+            replay_resampled_ms=time_replay(f"unfused {name} {h}x{w} re-sampled", lambda: slab_replay.replay_cuda(
+                feats, vol, lut, sign, p, out, g, grad, u8), smooth=True),
             fold_ms=cuda_ms(lambda: voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p), 10),
             # the rows a thread walks: all of its ray's, or chunks of them
             fold_chunks_ms={
@@ -1323,13 +1422,13 @@ def main(argv=None) -> int:
             },
             unfolded_scatter_ms=cuda_ms(lambda: voxel_grad.scatter_cuda(feats, folded, vol.shape, sign, p), 10),
             plain_transpose_ms=cuda_ms(
-                lambda: slab.smooth_dd_transpose(feats, dd0, vol.shape[1], vol.shape[2], bilinear), 1),
+                lambda: slab.smooth_dd_transpose(feats, dense0, vol.shape[1], vol.shape[2], bilinear), 1),
             ranges=stats,
         )
         row["plain_transpose_launches"] = device_profile(
-            lambda: slab.smooth_dd_transpose(feats, dd0, vol.shape[1], vol.shape[2], bilinear), 1)["device_launches"]
+            lambda: slab.smooth_dd_transpose(feats, dense0, vol.shape[1], vol.shape[2], bilinear), 1)["device_launches"]
         # the fused kernel (two chunk sizes) and the scatter without the fold against their plain versions
-        plain_v, plain_g, plain_rows = slab.smooth_voxel_grad(feats, dd, steps, vol.shape, sign, p, True)
+        plain_v, plain_g, plain_rows = slab.smooth_voxel_grad(feats, dense, steps, vol.shape, sign, p, True)
         default_chunk = voxel_grad.fold_chunk(vol.shape[0], h, w)
         row["fold_chunk"] = default_chunk
         for chunk in sorted({default_chunk, 16}):
@@ -1344,7 +1443,7 @@ def main(argv=None) -> int:
                 folded_rows_bitwise=f"{int(inner.sum())}/{inner.numel()}",
                 folded_rows_max_abs_err=float((plain_rows - rows).abs().max()))
         fold_out = voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p)
-        row["fold_bound"] = fold_bound(feats, dd, steps, int((plain_rows != 0.0).sum()), fold_out[:2], stats)
+        row["fold_bound"] = fold_bound(feats, steps, int((plain_rows != 0.0).sum()), fold_out[:2], stats)
         del rows, fold_out
         u_v, u_g = voxel_grad.scatter_cuda(feats, folded, vol.shape, sign, p)
         torch.cuda.synchronize()
@@ -1354,20 +1453,27 @@ def main(argv=None) -> int:
         del u_v, u_g, plain_rows
         # B2 unfused on both routes against the plain replay
         plain_dd, plain_steps, plain_dl = slab.replay_slabs(feats, vol, lut, sign, p, out, g, grad, u8, dens)
+        if not torch.equal(slab.dense_dd(plain_dd, plain_steps), plain_dd):
+            raise AssertionError(f"{label}: the plain dd is not 0.0 outside its step range")
+        routes_dd = {}
         for route, d in (("stored", dens), ("re-sampled", None)):
             got_dd, got_steps, got_dl = slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8, d)
-            hold("slab_replay", plain_dd, got_dd, f"{label} {route} replay dd")
-            hold("slab_replay", plain_dl, got_dl, f"{label} {route} replay d_lut", lut)
             if not torch.equal(plain_steps, got_steps):
                 raise AssertionError(f"{label} {route}: the step range differs from the plain replay's")
-        del plain_dd, plain_steps, plain_dl, got_dd, got_steps, got_dl
+            routes_dd[route] = slab.dense_dd(got_dd, got_steps)
+            hold("slab_replay", plain_dd, routes_dd[route], f"{label} {route} replay dd")
+            hold("slab_replay", plain_dl, got_dl, f"{label} {route} replay d_lut", lut)
+            row[f"replay_{route}_dd_bitwise"] = torch.equal(plain_dd, routes_dd[route])
+        if not torch.equal(routes_dd["stored"], routes_dd["re-sampled"]):
+            raise AssertionError(f"{label}: the two replay routes give different cotangents")
+        del plain_dd, plain_steps, plain_dl, got_dd, got_steps, got_dl, routes_dd
         # index_add_ of the nonzero folded entries' precomputed corners
         idx, vals, size = scatter_indices(feats, folded, vol.shape, sign, p)
         row["fold_library_ms"] = cuda_ms(
             lambda: torch.zeros(size, dtype=torch.float32, device=dev).index_add_(0, idx, vals), 10)
         lib = torch.zeros(size, dtype=torch.float32, device=dev).index_add_(0, idx, vals)
         parity.check_close(lib[: plain_v.numel()].reshape(plain_v.shape), plain_v, f"{label} index_add_ vs plain")
-        row["plain_fold_ms"] = cuda_ms(lambda: slab.smooth_voxel_grad(feats, dd, steps, vol.shape, sign, p), 1)
+        row["plain_fold_ms"] = cuda_ms(lambda: slab.smooth_voxel_grad(feats, dense, steps, vol.shape, sign, p), 1)
         row["plain_replay_ms"] = cuda_ms(lambda: slab.replay_slabs(feats, vol, lut, sign, p, out, g, grad, u8, dens), 1)
         row["plain_fwd_ms"] = cuda_ms(lambda: slab.march_slabs(feats, vol, lut, sign, p, grad, u8), 1)
 
@@ -1408,13 +1514,13 @@ def main(argv=None) -> int:
                                           composited * MARCH_OPS_PER_STEP + sampled * SMOOTH_OPS_PER_STEP)
         row["fwd_bound"] = bound(nbytes(feats, vol, lut, grad, out),
                                  composited * MARCH_OPS_PER_STEP + stencils * SMOOTH_OPS_PER_STEP)
-        row["replay_bound"] = bound(nbytes(feats, lut, out, g, dd, steps, lut) + int((dens != 0.0).sum()) * 4,
-                                    composited * REPLAY_OPS_PER_STEP)
+        row["replay_bound"] = replay_bounds(feats, vol, lut, grad, out, g, dens, dd, steps, stats, composited,
+                                            stencils)
         row.update(composited_steps=composited, sampled_steps=sampled, stencil_steps=stencils,
                    scatter_entries=entries, step0=agree)
         gtraining[f"{name} {h}x{w}"] = row
         log(f"{label}: {json.dumps(row)}")
-        del out, dens, dd, dd0, steps, folded, g, idx, vals, lib, d_v, d_g, plain_v, plain_g
+        del out, dens, dd, dense, dense0, steps, folded, g, idx, vals, lib, d_v, d_g, plain_v, plain_g
 
     # phase 6c: the smoothed training step with camera gradients: B1 on f32
     # planes, B2 with its camera chain (re-sampled), B3 or B4 with the
@@ -1510,21 +1616,40 @@ def main(argv=None) -> int:
         out = slab_march.march_cuda(feats, vol, lut, sign, p, grad)
         g = torch.ones_like(out)
         dd, steps = slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad)[:2]
-        dd0 = dd[:, 0] if shaded else dd
-        plain_dd = slab.smooth_dd_transpose(feats, dd0, vol.shape[1], vol.shape[2], tri)
+        dense = slab.dense_dd(dd, steps)  # the kernel writes dd only inside each ray's step range
+        dense0 = dense[:, 0] if shaded else dense
+        plain_dd = slab.smooth_dd_transpose(feats, dense0, vol.shape[1], vol.shape[2], tri)
         nocam = p.replace(camera_grads=False)
         row = dict(
             planes=int(vol.shape[0]), shading=shaded, interpolation=p.interpolation.value,
             fwd_ms=cuda_ms(lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad), 10),
-            fwd_before_ms=parent.ms("slab_march", lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad), 10)
-            if parent else None,
+            fwd_before_ms=parent_ms("slab_march", lambda: slab_march.march_cuda(feats, vol, lut, sign, p, grad), 10),
             stage=staged_pairs(feats, vol, grad, False, p),
-            replay_camera_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad), 10),
-            replay_no_camera_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, nocam, out, g, grad), 10),
-            plain_transpose_ms=cuda_ms(lambda: slab.smooth_dd_transpose(feats, dd0, vol.shape[1], vol.shape[2], tri), 1),
+            replay_camera_ms=time_replay(f"camera {name}", lambda: slab_replay.replay_cuda(
+                feats, vol, lut, sign, p, out, g, grad), smooth=True),
+            replay_no_camera_ms=time_replay(f"camera {name} without the chain", lambda: slab_replay.replay_cuda(
+                feats, vol, lut, sign, nocam, out, g, grad), smooth=True),
+            plain_transpose_ms=cuda_ms(
+                lambda: slab.smooth_dd_transpose(feats, dense0, vol.shape[1], vol.shape[2], tri), 1),
             fold_ms=cuda_ms(lambda: voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, tri), 10),
-            ranges=fold_inputs(feats, dd, steps),
+            ranges=fold_inputs(feats, dense, steps),
         )
+        # B2's bound with and without the chain, from this step's composited
+        # steps and the stencils that run (the forward's residual counts them)
+        dens = slab_march.march_cuda(feats, vol, lut, sign, nocam, grad, emit_density=True)[1]
+        d0 = dens[:, 0] if shaded else dens
+        threshold = slab.march_knobs(p, False)[0]
+        composited = int((d0 >= threshold).sum())
+        stencils = stencil_steps(feats, vol, sign, p, threshold, d0 != 0.0)
+        del dens, d0
+        # d_feats' rows written: F_AEXP, F_HX..F_HZ when shaded, F_RS..F_CB and F_TS when trilinear
+        chain_rows = 1 + 3 * shaded + 5 * tri
+        # (the chain's F_TS term is a second stencil a composited step)
+        with_chain = replay_bounds(feats, vol, lut, grad, out, g, None, dd, steps, row["ranges"], composited,
+                                   stencils, chain_rows, composited * SMOOTH_OPS_PER_STEP if tri else 0)
+        row.update(replay_bound=with_chain["re-sampled"], replay_whole_dd_bound=with_chain["re-sampled whole dd"],
+                   replay_no_camera_bound=replay_bounds(feats, vol, lut, grad, out, g, None, dd, steps, row["ranges"],
+                                                        composited, stencils)["re-sampled"])
         rows_k = voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, tri)[2]
         if tri:
             inner = (plain_dd[1:-1] == rows_k[1:-1]).reshape(plain_dd.shape[0] - 2, -1).all(1)
@@ -1564,7 +1689,7 @@ def main(argv=None) -> int:
             )
         ctraining[name] = row
         log(f"{label}: {json.dumps(row)}")
-        del out, g, dd, dd0, steps, plain_dd
+        del out, g, dd, dense, dense0, steps, plain_dd
 
     # phase 7: a few descent steps on the f32 stream
     fit_p = train_p.replace(u8_volume=False)
@@ -1604,7 +1729,31 @@ def main(argv=None) -> int:
             log(f"cli: screenshot {' '.join(flags)} (smoothing on) wrote a {len(data)}-byte PNG; "
                 f"(march, straight, cone) launches {launched}")
 
-    # B1 and B7 in every cell where they run: ms, the --parent checkout's
+    # B2 in every route and cell: ms, each --parent checkout's ms on the
+    # same inputs (with the zero-fill its wrapper did; under smoothing also
+    # with dd by torch.empty), the bound (and the bound with all of dd
+    # written), and what share of the first checkout's time each later one
+    # and the first one's zero-fill save
+    for key, row in training.items():
+        b2[f"fused {key} stored"]["bound"] = [row["replay_bound_ms"], row["replay_bound_by"]]
+        b2[f"fused {key} re-sampled"]["bound"] = row["replay_resampled_bound"]
+    for key, row in gtraining.items():
+        for route in ("stored", "re-sampled"):
+            b2[f"unfused {key} {route}"].update(bound=row["replay_bound"][route],
+                                                whole_dd_bound=row["replay_bound"][f"{route} whole dd"])
+    for name, row in ctraining.items():
+        b2[f"camera {name}"].update(bound=row["replay_bound"], whole_dd_bound=row["replay_whole_dd_bound"])
+        b2[f"camera {name} without the chain"]["bound"] = row["replay_no_camera_bound"]
+    if parents:
+        for row in b2.values():
+            first = row["before"][0]
+            shares = {parent.label: 1.0 - t / first for parent, t in zip(parents[1:], row["before"][1:])}
+            if "before_empty" in row:
+                shares["zero-fill"] = 1.0 - row["before_empty"][0] / first
+            row["shares_of_first_parent"] = shares
+    log(json.dumps({"B2_ms_after_before": b2, "parents": [parent.label for parent in parents] or None}))
+
+    # B1 and B7 in every cell where they run: ms, each --parent checkout's
     # ms on the same inputs, and B1's staged share
     cells = {}
     for name, row in results.items():
@@ -1623,7 +1772,7 @@ def main(argv=None) -> int:
     for name, row in ctraining.items():
         cells[f"camera training {name}"] = dict(B1=[row["fwd_ms"], row["fwd_before_ms"]], stage=row["stage"])
     log(json.dumps({"B1_B7_ms_after_before": cells, "B7_occupancy": cone_occupancy,
-                    "parent": args.parent}))
+                    "parent": args.parent or None}))
 
     bench, step = results["bench"], training[f"{FULL_H}x{FULL_W}"]
     rows = {

@@ -323,11 +323,12 @@ def _fold(feats, dd, vol_shape, p):
 @pytest.mark.parametrize("h,v", ORBITS[:2])
 def test_smooth_replay_and_scatter_match_plain(scene256, h, v, interp, stream, shading):
     """B2 unfused against the plain replay from the residual and
-    re-sampled (the per-step cotangents by the repo rule and the step range
-    bit for bit, the two kernel routes bit for bit: no atomics write them;
-    d_lut by the two-group rule), then B3 (unshaded) or B4 (shaded) without
-    the fold against the plain scatter on the folded cotangents, by the
-    repo rule (atomics reorder the sums)."""
+    re-sampled (the per-step cotangents on each ray's step range, where the
+    kernel writes them, by the repo rule, and the step range bit for bit;
+    the two kernel routes' cotangents on the range bit for bit: no atomics
+    write them; d_lut by the two-group rule), then B3 (unshaded) or B4
+    (shaded) without the fold against the plain scatter on the folded
+    cotangents, by the repo rule (atomics reorder the sums)."""
     p, feats, vol, lut, sign, grad, u8 = _smooth_inputs(scene256, h, v, interp, stream, shading)
     img, dens = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, emit_density=True)
     g = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (H, W, 4)).astype(np.float32)).to(img.device)
@@ -335,11 +336,14 @@ def test_smooth_replay_and_scatter_match_plain(scene256, h, v, interp, stream, s
     got = {route: slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g, grad, u8, d)
            for route, d in (("stored", dens), ("re-sampled", None))}
     torch.cuda.synchronize()
+    assert torch.equal(slab.dense_dd(want_dd, want_steps), want_dd)
+    ranged = {}
     for route, (dd, steps, d_lut) in got.items():
-        parity.check_close(want_dd, dd, f"{route} dd")
-        parity.check_lut_grad(want_lut, d_lut, lut, f"{route} d_lut")
         assert torch.equal(want_steps, steps), f"{route} step range"
-    assert torch.equal(got["stored"][0], got["re-sampled"][0])
+        ranged[route] = slab.dense_dd(dd, steps)
+        parity.check_close(want_dd, ranged[route], f"{route} dd")
+        parity.check_lut_grad(want_lut, d_lut, lut, f"{route} d_lut")
+    assert torch.equal(ranged["stored"], ranged["re-sampled"])
     assert float(want_dd.abs().max()) > 0
     dd = _fold(feats, want_dd, vol.shape, p)
     before = (voxel_grad.LAUNCHES, voxel_grad.SHADED_LAUNCHES)
@@ -388,6 +392,58 @@ def test_fold_scatter_matches_plain(scene256, h, v, interp, shading, folded):
             continue
         assert torch.equal(want_rows[1:-1], rows[1:-1]), f"chunk={chunk}: folded rows differ"
         parity.check_close(want_rows[[0, -1]], rows[[0, -1]], f"chunk={chunk} folded end rows")
+
+
+def _nan_fill(shape, **kwargs):
+    return torch.full(shape, float("nan"), **kwargs)
+
+
+@pytest.mark.parametrize("camera", [False, True])
+@pytest.mark.parametrize("interp,shading", [("trilinear", False), ("nearest", True), ("trilinear", True)])
+def test_dd_outside_the_step_range_is_never_read(scene256, device, monkeypatch, interp, shading, camera):
+    """The replay writes dd only on each ray's step range: with its
+    allocation NaN-filled instead of left as it is, the fused
+    fold-and-scatter's d_vol / d_grad and the whole smoothed training
+    step's gradients (camera ones too) stay finite and agree with a
+    zero-filled run by the repo rule (atomics reorder the sums)."""
+    p = RenderParams(use_gaussian_smoothing=True, interpolation=interp, use_shading=shading,
+                     raymarching_step_size=0.005, camera_grads=camera)
+    cam = Camera(aspect=W / H, distance=1.3).orbit(30.0, 20.0, 0.0).matrices()
+    feats, vol, lut, sign, grad, u8 = slab_march.prepare(scene256, cam, p, H, W)
+    img = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8)
+    g = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (H, W, 4)).astype(np.float32)).to(device)
+    chain = camera and interp == "trilinear"
+
+    def run():
+        dd, steps = slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g, grad, u8)[:2]
+        fold = voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, chain)
+        scene = Scene(scene256.volume.clone().requires_grad_(True), scene256.importance,
+                      scene256.tf_lut.clone().requires_grad_(True))
+        cm = Camera(aspect=W / H).orbit(10.0, 5.0, 0.0).matrices()
+        leaves = [scene.volume, scene.tf_lut]
+        if camera:
+            leaves += [cm.inverse_view_proj.requires_grad_(True), cm.position.requires_grad_(True)]
+        make_renderer(scene, p, H, W, backend="slab_cuda", device=device, differentiable=True)(cm).sum().backward()
+        torch.cuda.synchronize()
+        return dd, steps, fold, [t.grad for t in leaves]
+
+    monkeypatch.setattr(slab_replay, "ALLOC_DD", torch.zeros)
+    _, _, want_fold, want_grads = run()
+    monkeypatch.setattr(slab_replay, "ALLOC_DD", _nan_fill)
+    dd, steps, fold, grads = run()
+    outside = ~(slab.dense_dd(torch.ones_like(dd), steps) > 0.0)
+    assert bool(outside.any()) and bool(dd[outside].isnan().all()), "the NaN fill did not stay outside the ranges"
+    for name, a, b in zip(("d_vol", "d_grad", "folded rows"), want_fold, fold):
+        if a is not None:
+            assert bool(torch.isfinite(b).all()), name
+            parity.check_close(a, b, name)
+    assert float(want_grads[0].abs().max()) > 0
+    for name, a, b in zip(("d_volume", "d_lut", "d_inverse_view_proj", "d_position"), want_grads, grads):
+        assert bool(torch.isfinite(b).all()), name
+        if name == "d_lut":
+            parity.check_lut_grad(a, b, scene256.tf_lut, name)
+        else:
+            parity.check_close(a, b, name)
 
 
 @pytest.mark.parametrize("shading", [False, True])
@@ -476,6 +532,8 @@ def test_camera_replay_and_feats_grad_match_plain(scene, scene256, h, v, interp,
     got = slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g, grad)
     torch.cuda.synchronize()
     assert len(got) == len(want)
+    if smooth:  # dd is written on each ray's step range only
+        got = (slab.dense_dd(got[0], got[1]), *got[1:])
     for a, b in zip(want[:-2], got[:-2]):
         if a is not None:
             parity.check_close(a, b, "replay")

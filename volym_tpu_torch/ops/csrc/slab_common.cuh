@@ -3,8 +3,9 @@
 // the plain rows' camera chain (feats_grad.cu) and the look-ahead gate
 // (lookahead.cu): the per-ray and cone tables' rows, the subtexel snap, the
 // nearest tap, the clamp-to-edge slice sample, its transpose and its
-// coordinate derivative, the TF texel lookup and the Gaussian smoothing
-// stencil with its tap-offset derivative.  The kernels must evaluate these
+// coordinate derivative, the TF texel lookup, the bound of a sample by its
+// largest texel and the Gaussian smoothing stencil with its tap-offset
+// derivative.  The kernels must evaluate these
 // expressions identically, bit for bit (build with --fmad=false), so that
 // the replay reproduces the forward's masks and the gate the march's
 // samples.  A sample reads its texels through an accessor: a slice in
@@ -180,6 +181,14 @@ __device__ __forceinline__ TfTexels tf_texels(float density, float tf_scale, flo
     t.i1 = min(t.i0 + 1, ln - 1);
     return t;
 }
+
+// the largest value any sample over texels of at most m can take, with the
+// rounding of its sums: a convex combination with weights that sum to one
+// (a bilinear or box sample, or the smoothing stencil over plain rows, below).
+// A sample whose texels (rows) all lie below the threshold by this bound is
+// below it too: the march (slab_march.cu) and its replay (slab_replay.cu)
+// skip it exactly.
+__device__ __forceinline__ float sample_bound(float m) { return fmaxf(m, 0.0f) * (1.0f + 0x1p-16f); }
 
 // ---------------------------------------------------------------------------
 // Gaussian smoothing (volym_tpu_torch/render/slab.py smooth_row; the TPU

@@ -246,10 +246,6 @@ __device__ __forceinline__ StagedTexels<T> staged_slice(const unsigned char* buf
                            w.pitch<T>()};
 }
 
-// the largest value any sample over texels of at most m can take, with the
-// rounding of its sums: a convex combination with weights that sum to one
-__device__ __forceinline__ float sample_bound(float m) { return fmaxf(m, 0.0f) * (1.0f + 0x1p-16f); }
-
 template <bool BILINEAR, bool U8, bool SHADING, bool EMIT, bool SMOOTH>
 __global__ void __launch_bounds__(THREADS, SMOOTH ? 2 : 4) slab_march_kernel(
     const float* __restrict__ feats,  // (N_FEATURES, H, W)

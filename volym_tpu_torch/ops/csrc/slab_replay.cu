@@ -19,8 +19,8 @@
 // image, chains the image cotangent through the opacity correction, the
 // shading and the TF lookup, and
 //   - adds the step's density cotangent dd, times the sample's own bilinear
-//     (4 taps) or box (1 tap) weights, into d_vol[k] with atomicAdd, and the
-//     gradient-field cotangent into d_grad[c][k] when shaded;
+//     (4 taps) or box (1 tap) weights, into d_vol[k], and the gradient-field
+//     cotangent into d_grad[c][k] when shaded, with global atomics;
 //   - adds the TF cotangent into a per-block copy of d_lut in shared memory
 //     (shared atomics, weights (1-fr, fr) on texels (i0, i1)), flushed with
 //     one global atomicAdd per nonzero entry per block.
@@ -28,14 +28,20 @@
 // inside a texel, exactly 0 at an integer coordinate, and dd is dropped
 // where the raw coordinate is clamped.
 //
-// Bound: latency and atomics.  A step is a chain of dependent loads (the
-// residual or the taps, then the LUT) as in the forward, and ends in 4 (or
-// 16 when shaded) global float atomics into the permuted grid (64 MB f32 at
-// 256^3, a little above the 50 MB L2) plus 8 shared atomics.  Neighbouring
-// threads of a 16x16 tile hit neighbouring voxels, so the atomics of a warp
-// spread over few cache lines; the LUT gradient, which every ray touches,
-// stays in shared memory.  The summation order of d_vol and d_lut changes
-// from run to run: the kernel is held to its plain version by tolerance.
+// Bound: latency.  A step is a chain of dependent loads (the residual or
+// the taps, then the LUT) as in the forward, and ends in 4 (or 16 when
+// shaded) global float atomics into the permuted grid (64 MB f32 at 256^3,
+// a little above the 50 MB L2) plus 8 shared atomics.  Neighbouring
+// threads of a 16x16 tile hit neighbouring voxels, so the atomics of a
+// warp spread over few cache lines; the LUT gradient, which every ray
+// touches, stays in shared memory.  On the H100 the global scatter and
+// the shared atomics are 3-17% of the time at 1024x768, and combining a
+// warp's atomics on one target first (cooperative groups'
+// labeled_partition and reduce) measured slower on every route than the
+// atomics it saves (PERF.md §6), so each thread adds its own.  Under
+// smoothing the bytes are the in-range dd, written once (below).  The
+// summation order of d_vol and d_lut changes from run to run: the kernel
+// is held to its plain version by tolerance.
 //
 // Numerics: built with --fmad=false like the forward.  The replayed
 // accumulator must equal the forward's bit for bit, or the early-alpha mask
@@ -45,18 +51,30 @@
 // slab_bwd_kernel.py:329-400, 1590-1600): the step's density is the
 // smoothed one, read from the residual or re-sampled through the forward's
 // own SmoothWindow and smooth_density (slab_common.cuh), so the replay
-// retraces the forward bit for bit.  A step's density cotangent then
-// belongs to the smoothed density, a stencil over plain rows, and cannot be
-// scattered at the step's own coordinates: the kernel writes it, and the
+// retraces the forward bit for bit.  Re-sampled, a step whose 7 plain rows
+// all lie below the threshold by sample_bound skips its stencil, as the
+// forward does: its smoothed density lies below it too, so the step
+// composites nothing either way.  A step's density cotangent belongs to
+// the smoothed density, a stencil over plain rows, and cannot be scattered
+// at the step's own coordinates: the kernel writes it, and the
 // gradient-field cotangents when shaded, into dd (n, 1 or 4, H, W) at
 // (j, ray), rays fastest, and scatters nothing into d_vol or d_grad.  The
 // fused fold-and-scatter of voxel_grad.cu (B3, B4) takes dd from there.
-// d_lut stays here.  Steps that composite nothing keep the wrapper's
-// zero-fill.  The kernel also writes each ray's step range, steps (2, H, W)
-// int32: the first and the last step at which it writes a cotangent (n and
-// -1 for a ray with none), so that the fold walks only those steps and
-// their stencil halo instead of every zero of dd.  Bookkeeping only: the
-// arithmetic is unchanged.
+// d_lut stays here.  The kernel also writes each ray's step range, steps
+// (2, H, W) int32: the first and the last step at which it writes a
+// cotangent (a composited step whose TF coordinate lies inside the LUT, or
+// that is lit when shaded; n and -1 for a ray with none), so that the fold
+// walks only those steps and their stencil halo.
+//
+// dd's contract: the kernel writes every channel of every step inside each
+// ray's range, exact 0.0 where a step composites nothing or leaves a
+// channel unwritten, and nothing outside it.  It writes lazily: a written
+// step first zero-fills the steps since the previous written one, so the
+// steps before the first and after the last cost nothing.  dd outside the
+// range is unspecified (the wrapper allocates it with torch.empty); the
+// fold reads only inside it, and the plain version's dd is 0.0 there
+// (slab.py::dense_dd makes the kernel's dd dense for a reader of all of
+// it).
 //
 // Camera cotangents (CAM; _replay_step_body :817-892): the kernel also
 // accumulates d_feats, the cotangent of the ray's table, in registers over
@@ -139,7 +157,13 @@ __device__ __forceinline__ void replay_ray(
         const float t = ts * jf + tb;
         if (t >= exit_ || acc_a >= early_alpha) break;
         if (!(t >= entry)) continue;
-        if (SMOOTH && !STORED) win.advance(vol, j, rs, rb, cs, cb, n, nr, nc, sign, subtexel);
+        if (SMOOTH && !STORED) {
+            win.advance(vol, j, rs, rb, cs, cb, n, nr, nc, sign, subtexel);
+            float m = win.d[0];
+#pragma unroll
+            for (int o = 1; o < SMOOTH_ROWS; ++o) m = fmaxf(m, win.d[o]);
+            if (!(sample_bound(m) >= threshold)) continue;  // the stencil of rows below it is below it
+        }
         const float rows = snap(clampf(rs * jf + rb, 0.0f, rmax), subtexel);
         const float cols = snap(clampf(cs * jf + cb, 0.0f, cmax), subtexel);
         const size_t k = (size_t)(sign > 0 ? j : n - 1 - j);
@@ -153,7 +177,6 @@ __device__ __forceinline__ void replay_ray(
             density = sample<BILINEAR>(vol + k * slice, rows, cols, nr, nc);
         }
         if (!(density >= threshold)) continue;
-        float* ddj = SMOOTH ? dd + (size_t)j * DW * n_rays + r : nullptr;
 
         const float c_raw = density * tf_scale - 0.5f;
         const TfTexels tx = tf_texels(density, tf_scale, lmax, ln);
@@ -227,6 +250,8 @@ __device__ __forceinline__ void replay_ray(
         const float d_a = d_beta * aexp * expf((aexp - 1.0f) * log1ma);
         float d_r = g.x * w, d_g = g.y * w, d_b = g.z * w;
 
+        // the gradient-field cotangent (0 where unlit)
+        float d_gx = 0.0f, d_gy = 0.0f, d_gz = 0.0f;
         if (SHADING && lit_on) {
             // rgb = tf_rgb * lit + S * spec  ->  d tf_rgb, d normal -> d g
             const float d_diffuse = (d_r * tf_r + d_g * tf_g + d_b * tf_b) * DIFFUSE;
@@ -239,9 +264,9 @@ __device__ __forceinline__ void replay_ray(
             const float d_nz = d_sdiff * INV_SQRT3 + d_hdotn * hz;
             const float n_dot_dn = nx * d_nx + ny * d_ny + nz * d_nz;
             const float inv_norm = 1.0f / norm;
-            const float d_gx = inv_norm * (d_nx - nx * n_dot_dn);
-            const float d_gy = inv_norm * (d_ny - ny * n_dot_dn);
-            const float d_gz = inv_norm * (d_nz - nz * n_dot_dn);
+            d_gx = inv_norm * (d_nx - nx * n_dot_dn);
+            d_gy = inv_norm * (d_ny - ny * n_dot_dn);
+            d_gz = inv_norm * (d_nz - nz * n_dot_dn);
             if (CAM) {
                 a_hx = a_hx + d_hdotn * nx;
                 a_hy = a_hy + d_hdotn * ny;
@@ -255,17 +280,6 @@ __device__ __forceinline__ void replay_ray(
                     g_rows[ch] = rows_in ? d_gc[ch] * ds.x : 0.0f;
                     g_cols[ch] = cols_in ? d_gc[ch] * ds.y : 0.0f;
                 }
-            }
-            if (SMOOTH) {
-                ddj[n_rays] = d_gx;
-                ddj[2 * n_rays] = d_gy;
-                ddj[3 * n_rays] = d_gz;
-                first = min(first, j);
-                last = j;
-            } else {
-                scatter<BILINEAR>(d_grad + k * slice, rows, cols, nr, nc, d_gx);
-                scatter<BILINEAR>(d_grad + ((size_t)n + k) * slice, rows, cols, nr, nc, d_gy);
-                scatter<BILINEAR>(d_grad + ((size_t)2 * n + k) * slice, rows, cols, nr, nc, d_gz);
             }
             d_r = d_r * lit;
             d_g = d_g * lit;
@@ -282,17 +296,37 @@ __device__ __forceinline__ void replay_ray(
             d_c = d_c + d_rgba[ch] * (s_lut[i1 * 4 + ch] - s_lut[i0 * 4 + ch]);
         }
         const bool tf_in = fr > 0.0f && c_raw > 0.0f && c_raw < lmax;
-        if (tf_in) {
-            if (SMOOTH) {
-                ddj[0] = d_c * tf_scale;
-                first = min(first, j);
+        const float ddv = tf_in ? d_c * tf_scale : 0.0f;
+        if (SMOOTH) {
+            if (tf_in || lit_on) {
+                // the steps since the previous written one carry no cotangent
+                if (last >= 0) {
+                    for (int s = last + 1; s < j; ++s) {
+                        float* dz = dd + (size_t)s * DW * n_rays + r;
+#pragma unroll
+                        for (int c = 0; c < DW; ++c) dz[c * n_rays] = 0.0f;
+                    }
+                } else {
+                    first = j;
+                }
                 last = j;
-            } else {
-                scatter<BILINEAR>(d_vol + k * slice, rows, cols, nr, nc, d_c * tf_scale);
+                float* ddj = dd + (size_t)j * DW * n_rays + r;
+                ddj[0] = ddv;
+                if (SHADING) {
+                    ddj[n_rays] = d_gx;
+                    ddj[2 * n_rays] = d_gy;
+                    ddj[3 * n_rays] = d_gz;
+                }
             }
+        } else {
+            if (SHADING && lit_on) {
+                scatter<BILINEAR>(d_grad + k * slice, rows, cols, nr, nc, d_gx);
+                scatter<BILINEAR>(d_grad + ((size_t)n + k) * slice, rows, cols, nr, nc, d_gy);
+                scatter<BILINEAR>(d_grad + ((size_t)2 * n + k) * slice, rows, cols, nr, nc, d_gz);
+            }
+            if (tf_in) scatter<BILINEAR>(d_vol + k * slice, rows, cols, nr, nc, ddv);
         }
         if (CAM) {
-            const float ddv = tf_in ? d_c * tf_scale : 0.0f;
             a_aexp = a_aexp + d_beta * log1ma * (alpha - 1.0f);
             if (COORD) {
                 float d_rows = 0.0f, d_cols = 0.0f;
@@ -349,7 +383,7 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
     float* __restrict__ d_vol,        // (n, nr, nc), zero-filled
     float* __restrict__ d_grad,       // (3, n, nr, nc) when SHADING, zero-filled
     float* __restrict__ d_lut,        // (ln, 4), zero-filled
-    float* __restrict__ dd,           // (n, SHADING ? 4 : 1, H, W) when SMOOTH, zero-filled
+    float* __restrict__ dd,           // (n, SHADING ? 4 : 1, H, W) when SMOOTH, written in each ray's range
     int* __restrict__ steps,          // (2, H, W) when SMOOTH: first and last written step
     float* __restrict__ d_feats,      // (N_FEATURES, H, W) when CAM, zero-filled
     int height, int width, int n, int nr, int nc, int ln, int sign, int subtexel,

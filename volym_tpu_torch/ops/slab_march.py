@@ -498,7 +498,10 @@ def smooth_backward(
     :func:`feats_grad.feats_grad`: B5 on a GPU) adds the plain rows' camera
     chain with ``vol``, the f32 volume as marched; otherwise ``d_feats`` is
     None (box hats have no coordinate derivative,
-    ``slab_bwd_kernel.py:1789``)."""
+    ``slab_bwd_kernel.py:1789``).  ``dd`` from the CUDA replay is
+    unspecified outside each ray's step range (``slab_replay.replay_cuda``),
+    so ``scatter_fn`` must read it only inside ``steps``, as the fused
+    kernel does; the plain version's ``dd`` is 0.0 there."""
     chain = params.camera_grads and params.interpolation == Interpolation.TRILINEAR
     d_vol, d_grad, folded = scatter_fn(feats, dd, steps, vol.shape, sign, params, chain)
     d_feats = feats_grad_fn(feats, vol, folded, sign, params) if chain else None

@@ -10,8 +10,8 @@ scatter (passes 1 and 2) when its VMEM cannot hold the fused layout and
 under Gaussian smoothing; one thread per ray scatters with atomics and
 needs no second pass for VMEM's sake, but under smoothing a step's
 cotangent belongs to the smoothed density, so the kernel writes the
-per-step cotangents (the TPU's unfused ``dd`` output) and each ray's step
-range for the fused fold-and-scatter of
+per-step cotangents (the TPU's unfused ``dd`` output), inside each ray's
+step range only, and the range for the fused fold-and-scatter of
 :mod:`volym_tpu_torch.ops.voxel_grad`.
 
 :func:`replay` dispatches on the device of its tensors: CPU tensors go to
@@ -54,10 +54,14 @@ def use_stored_density(params: RenderParams, n: int, rays: int) -> bool:
     return width * int(n) * int(rays) * 4 <= STORE_DENSITY_BUDGET_MB * 1024 * 1024
 
 
-def _library():
-    from volym_tpu_torch.ops import _build
+#: allocates ``dd`` under Gaussian smoothing, called as ``torch.empty``:
+#: the kernel writes every entry inside each ray's step range and leaves the
+#: rest as it finds it (a test swaps in a NaN fill to show nothing reads it)
+ALLOC_DD = torch.empty
 
-    lib = _build.library("slab_replay")
+
+def _bind(lib: ctypes.CDLL):
+    """The C entry ``slab_replay_launch`` of a loaded build, typed."""
     fn = lib.slab_replay_launch
     if fn.argtypes is None:
         p = ctypes.c_void_p
@@ -66,6 +70,12 @@ def _library():
         fn.argtypes = [p] * 13 + [i] * 14 + [f, f, f, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _library():
+    from volym_tpu_torch.ops import _build
+
+    return _bind(_build.library("slab_replay"))
 
 
 def replay_cuda(
@@ -82,12 +92,18 @@ def replay_cuda(
 ):
     """Launch the CUDA replay kernel; same arguments and result as
     :func:`slab.replay_slabs` (``(dd, steps, d_lut)`` under Gaussian
-    smoothing, ``dd`` zero-filled here and ``steps`` written by the kernel
-    for every ray; with ``params.camera_grads`` a last
-    ``d_feats``, zero-filled here, which the kernel's camera mode
-    accumulates one ray a thread, without atomics).  The summation order
-    of its atomics, and so the last bits of ``d_vol``, ``d_grad`` and
-    ``d_lut``, change from run to run."""
+    smoothing, ``steps`` written by the kernel for every ray; with
+    ``params.camera_grads`` a last ``d_feats``, zero-filled here, which the
+    kernel's camera mode accumulates one ray a thread, without atomics),
+    with one difference: ``dd`` is allocated by :data:`ALLOC_DD`
+    (``torch.empty``) and the kernel writes it only inside each ray's step
+    range ``[steps[0], steps[1]]``, every channel of every step there (0.0
+    where a step carries no cotangent), so outside the range it is
+    unspecified where the plain version's is 0.0.  The fused
+    fold-and-scatter reads only inside the range; a reader of all of ``dd``
+    takes :func:`slab.dense_dd` first.  The summation order of the
+    atomics, and so the last bits of ``d_vol``, ``d_grad`` and ``d_lut``,
+    change from run to run."""
     global LAUNCHES
     dev = feats.device
     if dev.type != "cuda":
@@ -134,7 +150,7 @@ def replay_cuda(
     tf_scale = float(ln) * (dscale if dscale else 1.0)
     d_vol = d_grad = dd = steps = None
     if smooth:
-        dd = torch.zeros((n, 4, height, width) if shading else (n, height, width), dtype=torch.float32, device=dev)
+        dd = ALLOC_DD((n, 4, height, width) if shading else (n, height, width), dtype=torch.float32, device=dev)
         steps = torch.empty((2, height, width), dtype=torch.int32, device=dev)
     else:
         d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dev)

@@ -543,6 +543,17 @@ def smooth_dd_transpose(feats: torch.Tensor, dd: torch.Tensor, nr: int, nc: int,
     return out.reshape(m, height, width)
 
 
+def dense_dd(dd: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+    """``dd`` (N, H, W) or (N, 4, H, W) with every entry outside each ray's
+    step range ``[steps[0], steps[1]]`` ((2, H, W) int32, :func:`replay_slabs`)
+    set to 0.0: the plain replay's ``dd`` from the CUDA replay's, which
+    leaves the entries outside the range unspecified.  For a reader of all
+    of ``dd``; the fold reads only inside the range and needs none."""
+    j = torch.arange(dd.shape[0], device=dd.device)[:, None, None]
+    inside = (j >= steps[0]) & (j <= steps[1])
+    return torch.where(inside[:, None] if dd.dim() == 4 else inside, dd, 0.0)
+
+
 def voxel_grad(feats: torch.Tensor, dd: torch.Tensor, vol_shape, sign: int, params: RenderParams):
     """The voxel-gradient scatter: per-(march step, ray) cotangents ->
     ``(d_vol, d_grad)``.  The plain version of the CUDA kernels
