@@ -76,8 +76,16 @@ Phases, in order; any failure ends the run with a nonzero exit:
    0 is checked against the plain path (the image by the repo rule, the
    gate bit for bit); the gate kernel, the march with the gate and the
    frame are timed with CUDA events; the shares of set gate bits and of
-   pixels that differ from Base (above 0: the gate engaged) are printed;
-   one ImportanceCone frame is profiled;
+   pixels that differ from Base (above 0: the gate engaged) are printed,
+   and for B6 the shares of valid steps whose range test ran and whose
+   tap was taken (:func:`straight_gate`), with its bound on that count
+   beside the bound of the count before its skips; one ImportanceCone
+   frame is profiled.  Then the gate kernels alone, each bit for bit with
+   the plain gate and timed beside each ``--parent``'s: B6 at step .01
+   (128 resampled planes), and B6 and B7 on dense importance (the teapot
+   with importance ``0.5 + 0.5 * volume``: every texel important, opaque
+   where the volume is 1, so that no tap is skipped and every ray passes
+   an important texel);
 6. training: the ``bench.py`` step, ``sum(render_diff)`` with gradients for
    the volume and the LUT (trilinear, u8, threshold .15, 256 planes,
    unshaded, no camera gradients), through ``make_renderer(...,
@@ -139,9 +147,9 @@ The fourth-to-last line gives B2's ms in every route and cell (fused,
 stored and re-sampled, at 256x256 and 1024x768; unfused, stored and
 re-sampled, in both smoothed cells at both sizes; with and without the
 camera chain in both) beside each ``--parent`` checkout's and its bound;
-the third-to-last line gives, for every cell, B1's and B7's ms (and each
-``--parent`` checkout's, or null) and B1's staged share, with B7's
-occupancy; the second-to-last line is a JSON summary of the kernels; the
+the third-to-last line gives, for every cell, B1's, B6's and B7's ms
+(and each ``--parent`` checkout's, or null) and B1's staged share, with
+B7's occupancy; the second-to-last line is a JSON summary of the kernels; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -212,13 +220,23 @@ FEATS_GRAD_OPS_PER_ENTRY = 45
 #: valid step's range test (straight: norm_pos, the quotient, the compare
 #: and the ray's own snapped sample; cone: norm_pos and 8 range compares),
 #: a cone probe's coordinates and box test at every swept step, an in-box
-#: probe's snapped sample, and the ray's own sample where a cone bit is set
+#: probe's snapped sample, and the ray's own sample where a cone bit is set.
+#: The straight step splits into its range test (norm_pos, the quotient and
+#: the compare) and its tap (the clamped coordinates, the snap, the nearest
+#: tap and the level's two compares), each counted where the kernel must
+#: do it (:func:`straight_gate`); STRAIGHT_OPS_VALID, both at every valid
+#: step, is the count before the kernel skipped them
 GATE_OPS_SWEPT = 5
 STRAIGHT_OPS_VALID = 35
+STRAIGHT_OPS_RANGE = 12
+STRAIGHT_OPS_TAP = 23
 CONE_OPS_VALID = 40
 CONE_OPS_PROBE = 11
 CONE_OPS_INBOX = 16
 CONE_OPS_MAIN = 20
+#: the rows of the per-ray table the gate kernels read (csrc/lookahead.cu):
+#: both read these and no others
+GATE_FEATURE_ROWS = ("F_RS", "F_RB", "F_CS", "F_CB", "F_TS", "F_TB", "F_ENTRY", "F_EXIT", "F_SIGNOK", "F_CD", "F_C2")
 
 
 def log(*args):
@@ -275,15 +293,30 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def gate_ops(feats, cone_feats, levels, gate) -> int:
+def gate_bytes(feats, cone_feats, levels, words) -> int:
+    """The bytes the gate kernels must move: the per-ray table's rows they
+    read (``GATE_FEATURE_ROWS``), the cone table, the level grid (read by
+    the bounds pass) and the packed words written."""
+    return len(GATE_FEATURE_ROWS) * feats[0].numel() * feats.element_size() + nbytes(cone_feats, levels, words)
+
+
+def gate_ops(feats, cone_feats, levels, gate, work=None) -> int:
     """The f32 operations the gate kernels do on these inputs (the
     ``*_OPS_*`` counts): a live ray (sign flag set, hitting the box) sweeps
     every step; its valid steps, a cone direction's in-box steps and the
-    set bits are counted from the per-ray and cone tables."""
+    set bits are counted from the per-ray and cone tables.  With ``work``
+    (:func:`straight_gate`'s counts, straight only), a step's sweep, its
+    range test and its tap count only where the straight kernel must do
+    them: the steps it visits, the range tests it runs and the taps within
+    the span; without it, the sweep at every step of a live ray and both
+    at every valid step."""
     import torch
 
     from volym_tpu_torch.render import slab
 
+    if work is not None:
+        return (GATE_OPS_SWEPT * work["visited"] + STRAIGHT_OPS_RANGE * work["range_tests"]
+                + STRAIGHT_OPS_TAP * work["span_taps"])
     f = feats.reshape(feats.shape[0], -1)
     n, nr, nc = levels.shape
     live = (f[slab.F_SIGNOK] > 0.5) & (f[slab.F_EXIT] > f[slab.F_ENTRY])
@@ -304,6 +337,90 @@ def gate_ops(feats, cone_feats, levels, gate) -> int:
         return GATE_OPS_SWEPT * swept + STRAIGHT_OPS_VALID * int(valid)
     return (GATE_OPS_SWEPT * swept + CONE_OPS_VALID * int(valid) + CONE_OPS_PROBE * cf.shape[0] * swept
             + CONE_OPS_INBOX * int(inbox) + CONE_OPS_MAIN * int(gate.sum()))
+
+
+def snapped_tap(c, bits):
+    """The gate kernels' ``snapped_tap`` of a clamped coordinate: floor(c +
+    0.5) for 0 bits, else (floor(c * 2^bits + 0.5) + 2^(bits-1)) >> bits."""
+    import torch
+
+    if bits == 0:
+        return torch.floor(c + 0.5).long()
+    i = torch.floor(c * float(1 << bits) + 0.5).long()
+    return (i + (1 << (bits - 1))) >> bits
+
+
+def straight_gate(feats, levels, sign, subtexel):
+    """The straight gate kernel (B6, ``lookahead_kernel<false>``), one
+    thread a ray over all rays at once -> (its gate (N, H, W) bool in march
+    order, counts of what it does).
+
+    A ray is in phase 1 while its ``ns`` is FAR and the per-ray proof that
+    no such step sets its bit holds (``ts > 0`` and ``(n - 1) + max(exit,
+    0) / ts < FAR``): it runs no range test, visits only the steps whose
+    slice holds an important texel (:func:`important_bounds`) and taps
+    only where the clamped coordinate lies within a texel of their rows
+    and columns.  From the step below its first important tap (or from
+    the top, where the proof fails) it is in phase 2: it visits every
+    step, runs the range test at every valid one and taps wherever the
+    slice holds an important texel.  Where ``t`` rounds monotone in j (0 <
+    ts < inf, a finite tb) both phases visit the ray's valid steps alone.
+
+    Counted: the steps visited, the valid steps, the range tests run, the
+    taps taken, the taps within the span (those the kernel must take in
+    either phase), the set bits and the bits set while ``ns`` was FAR.
+    Raises where a skipped range test would have been true or a skipped
+    tap would have read level >= 1."""
+    import torch
+
+    from volym_tpu_torch.render import slab
+    from volym_tpu_torch.render.rays import sqrt_rn
+
+    _, height, width = feats.shape
+    f = feats.reshape(slab.N_FEATURES, -1)
+    n, nr, nc = levels.shape
+    lv = levels.reshape(n, -1)
+    entry, exit_, ts, tb = f[slab.F_ENTRY], f[slab.F_EXIT], f[slab.F_TS], f[slab.F_TB]
+    live = (f[slab.F_SIGNOK] > 0.5) & ~(exit_ <= entry)
+    has, r0, r1, c0, c1 = important_bounds(levels)
+    has = has.tolist()
+    r_lo, r_hi, c_lo, c_hi = ((b.float() + off).tolist() for b, off in ((r0, -1.0), (r1, 1.0), (c0, -1.0), (c1, 1.0)))
+    far_clean = (ts > 0.0) & (float(n - 1) + torch.fmax(exit_, torch.zeros_like(exit_)) / ts < slab.FAR)
+    windowed = (ts > 0.0) & torch.isfinite(ts) & torch.isfinite(tb)
+    ns = torch.full_like(ts, slab.FAR)
+    gate = torch.zeros((n, f.shape[1]), dtype=torch.bool, device=f.device)
+    counts = {key: torch.zeros((), dtype=torch.int64, device=f.device)
+              for key in ("visited", "valid", "range_tests", "taps", "span_taps", "set_while_far")}
+    for j in reversed(range(n)):
+        jf = torch.tensor(float(j), dtype=torch.float32, device=f.device)
+        k = j if sign > 0 else n - 1 - j
+        t = ts * jf + tb
+        valid = live & (t >= entry) & (t < exit_)
+        phase1 = (ns == slab.FAR) & far_clean
+        swept = live & (valid | ~windowed)
+        visited = swept if has[k] else swept & ~phase1
+        tested = valid & ~phase1
+        m_end = jf + (exit_ - sqrt_rn(torch.clamp(f[slab.F_C2] + 2.0 * t * f[slab.F_CD] + t * t, min=0.0))) / ts
+        ahead = valid & (ns <= m_end)
+        if bool((ahead & ~tested).any()):
+            raise AssertionError(f"straight gate, step {j}: a skipped range test would have been true")
+        rows_c = torch.clamp(f[slab.F_RS] * jf + f[slab.F_RB], 0.0, nr - 1.0)
+        cols_c = torch.clamp(f[slab.F_CS] * jf + f[slab.F_CB], 0.0, nc - 1.0)
+        level = lv[k][snapped_tap(rows_c, subtexel) * nc + snapped_tap(cols_c, subtexel)]
+        span = valid & has[k] & (rows_c >= r_lo[k]) & (rows_c <= r_hi[k]) & (cols_c >= c_lo[k]) & (cols_c <= c_hi[k])
+        if bool((valid & ~span & (level >= 1)).any()):
+            raise AssertionError(f"straight gate, step {j}: a skipped tap would have read an important texel")
+        tap = span | (tested & has[k])
+        bit = ahead & tested & ~(tap & (level >= 2))
+        counts["set_while_far"] += (bit & (ns == slab.FAR)).sum()
+        ns = torch.where(tap & (level >= 1), jf, ns)
+        gate[j] = bit
+        for key, mask in (("visited", visited), ("valid", valid), ("range_tests", tested), ("taps", tap),
+                          ("span_taps", span)):
+            counts[key] += mask.sum()
+    counts = {key: int(v) for key, v in counts.items()}
+    counts["set_bits"] = int(gate.sum())
+    return gate.reshape(n, height, width), counts
 
 
 def scatter_indices(feats, dd, vol_shape, sign, params):
@@ -503,22 +620,29 @@ def ptxas_report(log_text: str) -> dict:
     return report
 
 
+def important_bounds(levels):
+    """Each slice's important texels (level >= 1), as the gate kernels'
+    bounds pass finds them -> (has (N,) bool, first row, last row, first
+    column, last column (N,) int64; n / -1 where the slice has none)."""
+    import torch
+
+    def ends(mask):  # (N, m) bool -> first and last True index
+        idx = torch.arange(mask.shape[1], device=mask.device)
+        return torch.where(mask, idx, mask.shape[1]).amin(1), torch.where(mask, idx, -1).amax(1)
+
+    imp = levels >= 1
+    rows_any, cols_any = imp.any(2), imp.any(1)
+    return (rows_any.any(1), *ends(rows_any), *ends(cols_any))
+
+
 def important_span(levels) -> dict:
     """The slices of a level grid with important texels (level >= 1), and
     the mean share of such a slice that the rows x columns of those texels
-    span: what the cone gate's bounds pass leaves its probes to tap."""
-    import torch
-
-    imp = levels >= 1
-    has = imp.reshape(imp.shape[0], -1).any(1)
+    span: what the gate kernels' bounds pass leaves them to tap."""
+    has, r0, r1, c0, c1 = important_bounds(levels)
     if not bool(has.any()):
         return dict(important_slices=0, important_span_share=0.0)
-
-    def extent(mask):  # (slices, n) bool -> (slices,) last - first + 1
-        idx = torch.arange(mask.shape[1], device=mask.device)
-        return torch.where(mask, idx, -1).amax(1) - torch.where(mask, idx, mask.shape[1]).amin(1) + 1
-
-    span = extent(imp[has].any(2)) * extent(imp[has].any(1))
+    span = ((r1 - r0 + 1) * (c1 - c0 + 1))[has]
     return dict(important_slices=int(has.sum()),
                 important_span_share=float(span.float().mean()) / (levels.shape[1] * levels.shape[2]))
 
@@ -1113,6 +1237,56 @@ def main(argv=None) -> int:
     log(f"look-ahead serving: {la_launches[0]} march, {la_launches[1]} straight and {la_launches[2]} cone gate "
         f"launches for {len(la_configs) * FRAMES} frames ({la_counts})")
 
+    def time_gate(label, scene, cm, p, feats, sign):
+        """B6 or B7 on one frame's inputs, held bit for bit to the plain
+        gate and timed beside each ``--parent``'s and the plain gate, with
+        its bound (B6: on the count of the range tests and taps it must
+        run, and on the count before its skips) -> (row, packed gate)."""
+        kernel = "lookahead_cone" if p.use_cone_importance_check else "lookahead_straight"
+        cone_feats, levels = slab_march.lookahead_inputs(scene, cm, p, FULL_H, FULL_W)
+        gate_args = (feats, cone_feats, levels, sign, p.subtexel_bits)
+        words = lookahead.gate_cuda(*gate_args)
+        plain_gate = slab.lookahead_gate(*gate_args)
+        torch.cuda.synchronize()
+        got = lookahead.unpack_gate(words, levels.shape[0])
+        parity.check_gate(plain_gate, got, f"{label} gate")
+        err[kernel] = max(err[kernel], float((plain_gate.float() - got.float()).abs().max()))
+        if not bool(plain_gate.any()):
+            raise AssertionError(f"{label}: the gate never engages")
+        n_bytes = gate_bytes(feats, cone_feats, levels, words)
+        row = dict(kernel=kernel, gate_ms=cuda_ms(lambda: lookahead.gate_cuda(*gate_args), 20),
+                   gate_before_ms=parent_ms("lookahead", lambda: lookahead.gate_cuda(*gate_args), 20),
+                   plain_gate_ms=cuda_ms(lambda: slab.lookahead_gate(*gate_args), 2))
+        if kernel == "lookahead_cone":
+            gate_bound = bound(n_bytes, gate_ops(*gate_args[:3], plain_gate))
+        else:
+            # the transcription's gate is the plain one, and its counts what the kernel does
+            transcribed, work = straight_gate(feats, levels, sign, p.subtexel_bits)
+            parity.check_gate(plain_gate, transcribed, f"{label} transcribed gate")
+            del transcribed
+            gate_bound = bound(n_bytes, gate_ops(feats, None, levels, plain_gate, work))
+            valid = max(work["valid"], 1)
+            row.update(gate_bound_old_count=list(bound(n_bytes, gate_ops(feats, None, levels, plain_gate))),
+                       work=work, range_test_share=work["range_tests"] / valid, tap_share=work["taps"] / valid,
+                       span_tap_share=work["span_taps"] / valid, visited_share=work["visited"] / valid,
+                       set_bit_share_of_valid=float(plain_gate.sum()) / valid)
+            log(f"B6 work, {label}: of {work['valid']} valid steps, range tests ran at "
+                f"{row['range_test_share']:.4f}, taps were taken at {row['tap_share']:.4f} (within the span "
+                f"{row['span_tap_share']:.4f}), bits set at {row['set_bit_share_of_valid']:.4f}; steps visited "
+                f"{work['visited']}; bound {gate_bound[0]:.4f} ms ({gate_bound[1]}), "
+                f"{row['gate_bound_old_count'][0]:.4f} ms ({row['gate_bound_old_count'][1]}) on the count before "
+                f"the skips")
+        row.update(
+            planes=int(levels.shape[0]), gate_bound_ms=gate_bound[0], gate_bound_by=gate_bound[1],
+            gate_mib=words.numel() * 4 / 2**20, set_bit_share=float(plain_gate.float().mean()),
+            # what the bounds pass lets the kernels skip: the slices with
+            # important texels, and the share of their area the rows and
+            # columns of those texels span
+            **important_span(levels),
+        )
+        del plain_gate, got
+        return row, words
+
     la_results = {}
     for name, p in la_configs.items():
         img, cm0 = la_frames[name], la_cams[name].matrices()
@@ -1130,30 +1304,10 @@ def main(argv=None) -> int:
         row = dict(planes=int(vol.shape[0]), u8=u8, max_abs_err=r.max_abs_err, knife_edge_share=r.edge_frac)
         words = None
         if slab_march.lookahead_active(p):
-            kernel = "lookahead_cone" if p.use_cone_importance_check else "lookahead_straight"
-            cone_feats, levels = slab_march.lookahead_inputs(teapot, cm0, p, FULL_H, FULL_W)
-            gate_args = (feats, cone_feats, levels, sign, p.subtexel_bits)
-            words = lookahead.gate_cuda(*gate_args)
-            plain_gate = slab.lookahead_gate(*gate_args)
-            torch.cuda.synchronize()
-            got = lookahead.unpack_gate(words, vol.shape[0])
-            parity.check_gate(plain_gate, got, f"{name} frame 0 gate")
-            err[kernel] = max(err[kernel], float((plain_gate.float() - got.float()).abs().max()))
-            gate_bound = bound(nbytes(feats, cone_feats, levels, words), gate_ops(*gate_args[:3], plain_gate))
+            gate_row, words = time_gate(f"{name} frame 0", teapot, cm0, p, feats, sign)
             base_img = slab_march.render(teapot, cm0, p.replace(use_importance_rendering=False), FULL_H, FULL_W)
-            row.update(
-                kernel=kernel, gate_ms=cuda_ms(lambda: lookahead.gate_cuda(*gate_args), 20),
-                gate_before_ms=parent_ms("lookahead", lambda: lookahead.gate_cuda(*gate_args), 20),
-                plain_gate_ms=cuda_ms(lambda: slab.lookahead_gate(*gate_args), 2),
-                gate_bound_ms=gate_bound[0], gate_bound_by=gate_bound[1], gate_mib=words.numel() * 4 / 2**20,
-                set_bit_share=float(plain_gate.float().mean()),
-                # what B7's bounds pass lets its probes skip: the slices with
-                # important texels, and the share of their area the rows and
-                # columns of those texels span
-                **important_span(levels),
-                pixels_differing_from_base=float(((img - base_img).abs().amax(-1) > 1e-6).float().mean()),
-            )
-            del plain_gate, got
+            row.update(gate_row, pixels_differing_from_base=float(
+                ((img - base_img).abs().amax(-1) > 1e-6).float().mean()))
             if row["pixels_differing_from_base"] <= 0.0:
                 raise AssertionError(f"{name}: the frame equals Base: the gate did not engage")
         march_args = (feats, vol, lut, sign, p, grad)
@@ -1171,6 +1325,21 @@ def main(argv=None) -> int:
             row["profile"] = device_profile(lambda: la_renderers[name](cm0), 5)
         la_results[name] = row
         log(f"look-ahead {name}: {json.dumps(row)}")
+
+    # the gate kernels alone: B6 at step .01 (128 resampled planes), and B6
+    # and B7 on dense importance, where neither of B6's skips applies
+    dense = Scene(volume=teapot.volume, importance=0.5 + 0.5 * teapot.volume, tf_lut=teapot.tf_lut)
+    cm0 = la_cams["importance"].matrices()
+    gate_alone = {}
+    for name, gate_scene, gate_p in (
+        ("importance_step01", teapot, la_configs["importance"].replace(raymarching_step_size=0.01)),
+        ("dense importance", dense, la_configs["importance"]),
+        ("dense importance_cone", dense, la_configs["importance_cone"]),
+    ):
+        feats, _, _, sign, _, _ = slab_march.prepare(gate_scene, cm0, gate_p, FULL_H, FULL_W)
+        gate_alone[name], _ = time_gate(name, gate_scene, cm0, gate_p, feats, sign)
+        log(f"gate alone {name}: {json.dumps(gate_alone[name])}")
+    del dense
 
     # phase 6: the training step at full size
     train_p = RenderParams(
@@ -1753,15 +1922,18 @@ def main(argv=None) -> int:
             row["shares_of_first_parent"] = shares
     log(json.dumps({"B2_ms_after_before": b2, "parents": [parent.label for parent in parents] or None}))
 
-    # B1 and B7 in every cell where they run: ms, each --parent checkout's
-    # ms on the same inputs, and B1's staged share
+    # B1, B6 and B7 in every cell where they run: ms, each --parent
+    # checkout's ms on the same inputs, and B1's staged share
     cells = {}
     for name, row in results.items():
         cells[f"serving {name}"] = dict(B1=[row["march_ms"], row["march_before_ms"]], stage=row["stage"])
+    gate_key = {"lookahead_straight": "B6", "lookahead_cone": "B7"}
     for name, row in la_results.items():
         cells[f"look-ahead {name}"] = dict(B1=[row["march_ms"], row["march_before_ms"]], stage=row["stage"])
-        if row.get("kernel") == "lookahead_cone":
-            cells[f"look-ahead {name}"]["B7"] = [row["gate_ms"], row["gate_before_ms"]]
+        if "kernel" in row:
+            cells[f"look-ahead {name}"][gate_key[row["kernel"]]] = [row["gate_ms"], row["gate_before_ms"]]
+    for name, row in gate_alone.items():
+        cells[f"gate alone {name}"] = {gate_key[row["kernel"]]: [row["gate_ms"], row["gate_before_ms"]]}
     for name, row in training.items():
         cells[f"training {name}"] = dict(B1_residual=[row["fwd_residual_ms"], row["fwd_residual_before_ms"]],
                                          stage=row["stage"])
@@ -1771,7 +1943,7 @@ def main(argv=None) -> int:
                                                   stage=row["stage"])
     for name, row in ctraining.items():
         cells[f"camera training {name}"] = dict(B1=[row["fwd_ms"], row["fwd_before_ms"]], stage=row["stage"])
-    log(json.dumps({"B1_B7_ms_after_before": cells, "B7_occupancy": cone_occupancy,
+    log(json.dumps({"B1_B6_B7_ms_after_before": cells, "B7_occupancy": cone_occupancy,
                     "parent": args.parent or None}))
 
     bench, step = results["bench"], training[f"{FULL_H}x{FULL_W}"]
@@ -1790,6 +1962,8 @@ def main(argv=None) -> int:
         la = la_results[name]
         rows[kernel] = dict(launches=launches, ms=la["gate_ms"], plain_ms=la["plain_gate_ms"],
                             bound_ms=la["gate_bound_ms"], bound_by=la["gate_bound_by"])
+        if "gate_bound_old_count" in la:
+            rows[kernel]["bound_ms_old_count"] = la["gate_bound_old_count"][0]
     # B3 and B4 (the fused fold-and-scatter) at 1024x768 in the smoothed
     # bench step and CLI default; the plain version is the transpose and the
     # scatter
@@ -1814,7 +1988,8 @@ def main(argv=None) -> int:
          "launches": row["launches"], "max_abs_err": err[name], "max_rel_err": rel[name],
          "ms": row["ms"], "plain_ms": row["plain_ms"],
          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
-         **({"library": row["library"]} if "library" in row else {})}
+         **({"library": row["library"]} if "library" in row else {}),
+         **({"bound_ms_old_count": row["bound_ms_old_count"]} if "bound_ms_old_count" in row else {})}
         for name, row in rows.items()
     ]}))
     log(json.dumps({"ok": True, "device": {

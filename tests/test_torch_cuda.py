@@ -211,6 +211,96 @@ def test_gate_matches_plain(scene3, h, v, stream, cone):
     assert slab_march.stage_plan(feats, vol.shape, u8, p).counts()[0] > 0
 
 
+def _straight_case(feats, levels, case):
+    """(feats, levels) of one of B6's edge cases, made from a frame's own:
+    no importance; every texel important (a sixth opaque), so that no tap
+    is skipped; important texels only on row 0 of every slice with half
+    the rays (by the parity of their ``tb`` bits) shifted 4 rows below it,
+    so that their clamped coordinate taps row 0; or a tiny ``ts`` on half
+    the rays, each held inside its window, so that the proof that no bit
+    is set while ``ns`` is FAR fails and the range test sets bits."""
+    odd = (feats[slab.F_TB].view(torch.int32) & 1).bool()
+    if case == "tiny ts":
+        feats = feats.clone()
+        feats[slab.F_TS] = torch.where(odd, feats[slab.F_TS] * 1e-9, feats[slab.F_TS])
+        feats[slab.F_TB] = torch.where(odd, (feats[slab.F_ENTRY] + feats[slab.F_EXIT]) * 0.5, feats[slab.F_TB])
+        return feats, levels
+    if case == "empty":
+        return feats, torch.zeros_like(levels)
+    if case == "everywhere":
+        return feats, (torch.arange(levels.numel(), device=levels.device) % 6 == 0).to(torch.uint8).reshape(
+            levels.shape) + 1
+    levels = torch.zeros_like(levels)
+    levels[:, 0, :] = 1
+    levels[::3] *= 2
+    feats = feats.clone()
+    feats[slab.F_RB] = torch.where(odd, feats[slab.F_RB] - 4.0, feats[slab.F_RB])
+    return feats, levels
+
+
+@pytest.mark.parametrize("case", ["empty", "everywhere", "clamped edge", "tiny ts"])
+@pytest.mark.parametrize("stream", ["u8", "f32"])
+@pytest.mark.parametrize("h,v", [(30.0, 20.0), (300.0, -10.0)])
+def test_straight_gate_edge_cases_match_plain(scene3, h, v, stream, case):
+    """B6 on no importance, importance everywhere, clamped edge taps and a
+    tiny ``ts``, bit for bit with the plain gate; B1 with that gate bit for
+    bit with the plain march."""
+    p = _lookahead_params(stream, False)
+    cam = Camera(aspect=W / H, distance=1.3).orbit(h, v, 0.0).matrices()
+    feats, vol, lut, sign, grad, u8 = slab_march.prepare(scene3, cam, p, H, W)
+    _, levels = slab_march.lookahead_inputs(scene3, cam, p, H, W)
+    feats, levels = _straight_case(feats, levels, case)
+    words = lookahead.gate_cuda(feats, None, levels, sign, p.subtexel_bits)
+    want = slab.lookahead_gate(feats, None, levels, sign, p.subtexel_bits)
+    torch.cuda.synchronize()
+    parity.check_gate(want, lookahead.unpack_gate(words, vol.shape[0]), f"{stream} {case}")
+    assert bool(want.any()) == (case != "empty")
+    img = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, gate=words)
+    plain = slab.march_slabs(feats, vol, lut, sign, p, grad, u8, gate=want)
+    torch.cuda.synchronize()
+    assert torch.equal(img, plain)
+
+
+@pytest.mark.parametrize("cone", [False, True], ids=["straight", "cone"])
+@pytest.mark.parametrize("h,v", [(30.0, 20.0), (120.0, 10.0)])
+def test_gate_matches_plain_on_rows_of_no_whole_chunks(device, h, v, cone):
+    """A 24^3 scene: its level rows are not whole 16-byte chunks, so the
+    bounds pass reads bytes; B6 and B7 still equal the plain gate."""
+    scene24 = convert.scene(*three_level_scene(24), device=device)
+    p = _lookahead_params("u8", cone)
+    cam = Camera(aspect=W / H, distance=1.3).orbit(h, v, 0.0).matrices()
+    feats, vol, _, sign, _, _ = slab_march.prepare(scene24, cam, p, H, W)
+    cone_feats, levels = slab_march.lookahead_inputs(scene24, cam, p, H, W)
+    assert levels.shape[2] % 16 != 0
+    words = lookahead.gate_cuda(feats, cone_feats, levels, sign, p.subtexel_bits)
+    want = slab.lookahead_gate(feats, cone_feats, levels, sign, p.subtexel_bits)
+    torch.cuda.synchronize()
+    assert want.any(), "the gate never engages"
+    parity.check_gate(want, lookahead.unpack_gate(words, vol.shape[0]), f"24^3 cone={cone}")
+
+
+@pytest.mark.parametrize("cone", [False, True], ids=["straight", "cone"])
+def test_gate_cuda_passes_the_bounds_scratch(scene3, monkeypatch, cone):
+    """Both variants run after the bounds pass: gate_cuda hands the kernel
+    an (n, 4) int32 scratch, straight as well as cone."""
+    p = _lookahead_params("u8", cone)
+    cam = Camera(aspect=W / H, distance=1.3).matrices()
+    feats, vol, _, sign, _, _ = slab_march.prepare(scene3, cam, p, H, W)
+    cone_feats, levels = slab_march.lookahead_inputs(scene3, cam, p, H, W)
+    launch, scratch = lookahead._library(), []
+
+    def spy(*args):
+        scratch.append(args[-1])
+        return launch(*args)
+
+    monkeypatch.setattr(lookahead, "_library", lambda: spy)
+    words = lookahead.gate_cuda(feats, cone_feats, levels, sign, p.subtexel_bits)
+    torch.cuda.synchronize()
+    assert len(scratch) == 1 and scratch[0]
+    parity.check_gate(slab.lookahead_gate(feats, cone_feats, levels, sign, p.subtexel_bits),
+                      lookahead.unpack_gate(words, vol.shape[0]), f"cone={cone}")
+
+
 def test_lookahead_renderer_counts_launches(scene3, device):
     p = _lookahead_params("u8", True)
     render = make_renderer(scene3, p, H, W, backend="slab_cuda", device=device)

@@ -6,11 +6,11 @@ Counterpart of :mod:`volym_tpu.ops.lookahead_kernel`.  The TPU kernels
 reverse over (ray chunk, slab block) pairs, sampling it with box-hat
 matrix products, and emit one float32 per (march step, ray).  The CUDA
 kernels (``csrc/lookahead.cu``) run one thread per ray over the march
-steps in reverse (the cone kernel after a pass that bounds each slice's
-important texels, so that most probes take no tap), read a uint8 level
-grid
-(:func:`volym_tpu_torch.render.slab.importance_levels`) with direct loads,
-and emit one bit per (march step, ray), 32 steps to a word.  What they keep
+steps in reverse, after a pass that bounds each slice's important texels
+(so that most samples take no tap; the straight kernel also skips the
+range test of a ray that has passed no important texel), read a uint8
+level grid (:func:`volym_tpu_torch.render.slab.importance_levels`) with
+direct loads, and emit one bit per (march step, ray), 32 steps to a word.  What they keep
 is the semantics of :func:`volym_tpu_torch.render.slab.lookahead_gate`,
 their plain version.
 
@@ -107,14 +107,14 @@ def gate_cuda(
         raise ValueError(f"cone_feats must be float32 ({CONE_FEATURES}, {height}, {width})")
     n, nr, nc = levels.shape
     out = torch.empty((gate_words(n), height, width), dtype=torch.int32, device=dev)
-    # the cone kernel's first pass: each slice's important rows and columns
-    bounds = torch.empty((n, 4), dtype=torch.int32, device=dev) if cone_feats is not None else None
+    # the first pass: each slice's important rows and columns
+    bounds = torch.empty((n, 4), dtype=torch.int32, device=dev)
     fn = _library()
     with torch.cuda.device(dev):
         rc = fn(
             feats.data_ptr(), cone_feats.data_ptr() if cone_feats is not None else None,
             levels.data_ptr(), out.data_ptr(), height, width, n, nr, nc, int(sign), int(subtexel),
-            torch.cuda.current_stream(dev).cuda_stream, bounds.data_ptr() if bounds is not None else None,
+            torch.cuda.current_stream(dev).cuda_stream, bounds.data_ptr(),
         )
     if rc != 0:
         raise RuntimeError(f"lookahead kernel launch failed with CUDA error {rc}")
