@@ -55,7 +55,15 @@ Phases, in order; any failure ends the run with a nonzero exit:
    d_feats among its outputs, the step range bit for bit) and, under
    trilinear smoothing, B5 against
    the plain rows' chain on the folded cotangents (12), with the counts of
-   bit-equal d_feats printed;
+   bit-equal d_feats printed; then the last modes of B1 and B2 on the 64^3
+   three-level scene's volume with uniform importance, every view x {u8
+   trilinear native, f32 nearest resampled} x {shaded, unshaded} x
+   {smoothing off, on}: B1's importance coloring (48) and first-hit (48,
+   half of them gated, straight or cone by view), bit for bit, B2's
+   coloring mode (48; with its camera chain on the f32 cases, 24), B1's
+   residual under the gate, bit for bit (48), and B2 gated from the
+   residual and re-sampled (96; with its camera chain on the f32 cases,
+   24), within the repo's rule;
 4. serving: render the 256^3 synthetic bonsai at 1024x768 through
    ``make_renderer(..., backend="slab_cuda")``, 10 orbit frames 2 degrees
    apart in each of four configurations: the bench forward (trilinear, u8,
@@ -86,6 +94,14 @@ Phases, in order; any failure ends the run with a nonzero exit:
    with importance ``0.5 + 0.5 * volume``: every texel important, opaque
    where the volume is 1, so that no tap is skipped and every ray passes
    an important texel);
+5b. importance coloring and first-hit at full size on the teapot: the
+   frames of ``RenderParams()`` with ``use_importance_coloring`` and with
+   ``use_opacity`` off (shaded, smoothed, 128 f32 planes), 10 orbit frames
+   each through ``make_renderer``; the launch counts, frame 0 bit for bit
+   with the plain path, the share of pixels that differ from the
+   TF-composited frame, B1 and the frame timed with CUDA events beside the
+   plain versions, B1's bound, and the device busy and idle shares of a
+   frame (``torch.profiler``);
 6. training: the ``bench.py`` step, ``sum(render_diff)`` with gradients for
    the volume and the LUT (trilinear, u8, threshold .15, 256 planes,
    unshaded, no camera gradients), through ``make_renderer(...,
@@ -131,17 +147,30 @@ Phases, in order; any failure ends the run with a nonzero exit:
    and the whole step
    are timed with CUDA events beside the step without camera gradients,
    the plain transpose once, and a step is profiled;
+6d. the new modes' training steps at 1024x768 on the teapot through
+   ``make_renderer(..., differentiable=True)``: Importance and
+   ImportanceCone (the sweep preset) without and with camera gradients, and
+   importance coloring (``RenderParams()``'s defaults) with d_importance, a
+   few steps each; the launch counts of B1, B2, B6 and B7 (and none of
+   B3-B5: coloring folds nothing), step 0's image bit for bit and its
+   volume, LUT, importance and camera gradients against the plain step,
+   the gate, B1 and B2 (with their bounds) and the step timed with CUDA
+   events, and the step's device busy and idle shares;
 7. descent: 20 Adam steps (lr 1e-2, clamped to [0, 1]) on the volume and
    the LUT from a flat volume towards an image of the bonsai, on the f32
    stream (u8_volume=False, as fitting requires); the loss must fall;
-8. write two screenshots through the CLI with its default flags
-   (Gaussian smoothing on), the second with ``--importance --cone --scene
-   teapot``.
+8. write four screenshots through the CLI with its default flags
+   (Gaussian smoothing on), the others with ``--importance --cone --scene
+   teapot``, ``--coloring --scene teapot`` and ``--first-hit``.
 
 In phases 3-6 each case and cell where B1 runs also prints how its
 (block, batch) pairs split between the staged route and the direct one,
 from the transcription of the kernel's plan (``slab_march.stage_plan``) on
 the case's own inputs; the small cases must take both routes.
+
+The routes of the new modes run only in this checkout's kernels: a
+``--parent`` checkout's entry ignores the gate, the importance and the
+colour mode, so its times are given for the routes it has.
 
 The fourth-to-last line gives B2's ms in every route and cell (fused,
 stored and re-sampled, at 256x256 and 1024x768; unfused, stored and
@@ -149,7 +178,9 @@ re-sampled, in both smoothed cells at both sizes; with and without the
 camera chain in both) beside each ``--parent`` checkout's and its bound;
 the third-to-last line gives, for every cell, B1's, B6's and B7's ms
 (and each ``--parent`` checkout's, or null) and B1's staged share, with
-B7's occupancy; the second-to-last line is a JSON summary of the kernels; the
+B7's occupancy; the second-to-last line is a JSON summary of the kernels
+(B1's and B2's rows with the new modes' times and bounds under
+``modes``); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -172,6 +203,7 @@ TRAIN_SIZES = ((256, 256), (FULL_H, FULL_W))
 TRAIN_STEPS = 4
 GAUSS_TRAIN_STEPS = 3
 CAM_STEPS = 3
+MODE_STEPS = 3
 DESCENT_STEPS = 20
 ORBITS = [(30.0, 20.0), (210.0, 20.0), (120.0, 10.0), (300.0, -10.0), (20.0, 70.0), (20.0, -70.0)]
 KERNELS = {
@@ -600,15 +632,16 @@ def stencil_steps(feats, vol, sign, params, threshold, sampled) -> int:
 def ptxas_report(log_text: str) -> dict:
     """Each kernel's registers and spill bytes from nvcc's ``-Xptxas -v``
     output: {kernel: [registers, spill stores + loads]}, the kernel named by
-    its function and its template arguments (1/0 for each bool)."""
+    its function and its template arguments (1/0 for each bool, the value of
+    an int: the march's colour mode)."""
     report, name = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            fn = re.search(r"\d+(slab_march_kernel|slab_replay_kernel|important_bounds_kernel|lookahead_kernel)",
-                           mangled)
-            args = "".join(re.findall(r"Lb([01])E", mangled))
+            fn = re.search(r"\d+(slab_march_kernel|slab_replay_kernel_bounded|slab_replay_kernel|important_bounds_kernel"
+                           r"|lookahead_kernel)", mangled)
+            args = "".join(re.findall(r"L[bi](\d+)E", mangled))
             name = (fn.group(1) if fn else mangled[:40]) + (f"<{args}>" if args else "")
             report[name] = [0, 0]
         elif name and "bytes spill" in line:
@@ -1107,6 +1140,127 @@ def main(argv=None) -> int:
     if (n_cam, n_b5) != (48, 12):
         raise AssertionError(f"{n_cam}, {n_b5} camera cases ran, expected 48, 12")
 
+    # the last modes of B1 and B2 on the three-level scene's volume with
+    # u8-representable uniform importance: every view x {u8 trilinear native,
+    # f32 nearest resampled} x {shaded, unshaded} x {smoothing off, on}: B1's
+    # coloring, first-hit (half the cases gated, straight or cone by view)
+    # and the residual under the gate, bit for bit; B2 in coloring mode and
+    # gated on the fused, unfused, stored and re-sampled routes within the
+    # repo's rule; on the f32 cases B2's camera chain gated and in coloring
+    # mode
+    color3 = Scene(small3.volume, torch.from_numpy(
+        np.round(np.random.default_rng(21).uniform(0.0, 1.0, (SMALL_SIDE,) * 3) * 255.0) / np.float32(255.0)
+    ).float().to(dev), small3.tf_lut)
+    modes = dict.fromkeys(("coloring", "coloring replay", "first-hit", "gated residual", "gated replay",
+                           "gated camera", "coloring camera"), 0)
+    n_first_changed = 0
+    small_routes["modes"] = [0, 0]
+    for i_view, (h, v) in enumerate(ORBITS):
+        cam = Camera(aspect=SMALL_W / SMALL_H, distance=1.3).orbit(h, v, 0.0).matrices()
+        view = slab.dominant_axis(cam)
+        cone = i_view % 2 == 1
+        for stream, step, interp in (("u8", 1.0 / SMALL_SIDE, "trilinear"), ("f32", 2.0 / SMALL_SIDE, "nearest")):
+            for shading in (False, True):
+                for smooth in (False, True):
+                    label = f"view {view} {stream} {interp} shading={shading} smoothing={smooth}"
+                    base = RenderParams(
+                        use_gaussian_smoothing=smooth, interpolation=interp, raymarching_step_size=step,
+                        use_shading=shading, u8_volume=True, density_threshold=0.12, camera_grads=False,
+                    )
+                    pc = base.replace(use_importance_coloring=True)
+                    feats, vol, lut, sign, grad, u8 = slab_march.prepare(color3, cam, pc, SMALL_H, SMALL_W)
+                    if u8 != (stream == "u8"):
+                        raise AssertionError(f"{label}: expected the {stream} stream")
+                    imp = slab_march.importance_perm(color3.importance, view[0], vol.shape[0]).contiguous()
+                    img = slab_march.march_cuda(feats, vol, lut, sign, pc, grad, u8=u8, imp_perm=imp)
+                    want = slab.march_slabs(feats, vol, lut, sign, pc, grad, u8, imp_perm=imp)
+                    torch.cuda.synchronize()
+                    count_routes("modes", feats, vol, grad, u8, pc)
+                    if not torch.equal(img, want):
+                        raise AssertionError(f"{label}: coloring differs from the plain march by "
+                                             f"{float((img - want).abs().max()):.3e}")
+                    modes["coloring"] += 1
+                    plain = slab.replay_slabs(feats, vol, lut, sign, pc, img, g_small, grad, u8, imp_perm=imp)
+                    got = slab_replay.replay_cuda(feats, vol, lut, sign, pc, img, g_small, grad, u8, imp_perm=imp)
+                    torch.cuda.synchronize()
+                    if float(plain[0].abs().max()) <= 0.0 or bool(got[2].any()):
+                        raise AssertionError(f"{label}: no d_imp, or a LUT gradient under coloring")
+                    hold("slab_replay", plain[0], got[0], f"{label} coloring d_imp")
+                    if shading:
+                        hold("slab_replay", plain[1], got[1], f"{label} coloring d_grad")
+                    modes["coloring replay"] += 1
+                    if stream == "f32":
+                        pcc = pc.replace(camera_grads=True)
+                        plain = slab.replay_slabs(feats, vol, lut, sign, pcc, img, g_small, grad, imp_perm=imp)
+                        got = slab_replay.replay_cuda(feats, vol, lut, sign, pcc, img, g_small, grad, imp_perm=imp)
+                        torch.cuda.synchronize()
+                        hold("slab_replay", plain[0], got[0], f"{label} coloring camera d_imp")
+                        hold("slab_replay", plain[-1], got[-1], f"{label} coloring camera d_feats")
+                        modes["coloring camera"] += 1
+
+                    # first-hit, gated in half the cases
+                    gated = shading == smooth
+                    pf = base.replace(use_opacity=False, use_importance_rendering=gated,
+                                      use_cone_importance_check=gated and cone)
+                    words = plane = None
+                    if gated:
+                        cone_feats, levels = slab_march.lookahead_inputs(color3, cam, pf, SMALL_H, SMALL_W)
+                        words = lookahead.gate_cuda(feats, cone_feats, levels, sign, pf.subtexel_bits)
+                        plane = lookahead.unpack_gate(words, vol.shape[0])
+                    img = slab_march.march_cuda(feats, vol, lut, sign, pf, grad, u8=u8, gate=words)
+                    want = slab.march_slabs(feats, vol, lut, sign, pf, grad, u8, gate=plane)
+                    torch.cuda.synchronize()
+                    if not torch.equal(img, want):
+                        raise AssertionError(f"{label}: first-hit differs from the plain march by "
+                                             f"{float((img - want).abs().max()):.3e}")
+                    modes["first-hit"] += 1
+                    n_first_changed += not torch.equal(img, slab.march_slabs(
+                        feats, vol, lut, sign, pf.replace(use_opacity=True), grad, u8, gate=plane))
+
+                    # the residual under the gate, and B2 gated on both routes
+                    pg = base.replace(use_importance_rendering=True, use_cone_importance_check=cone)
+                    cone_feats, levels = slab_march.lookahead_inputs(color3, cam, pg, SMALL_H, SMALL_W)
+                    words = lookahead.gate_cuda(feats, cone_feats, levels, sign, pg.subtexel_bits)
+                    plane = lookahead.unpack_gate(words, vol.shape[0])
+                    img, dens = slab_march.march_cuda(feats, vol, lut, sign, pg, grad, u8=u8, gate=words,
+                                                      emit_density=True)
+                    plain_img, plain_dens = slab.march_slabs(feats, vol, lut, sign, pg, grad, u8, emit_density=True,
+                                                             gate=plane)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(img, plain_img) and torch.equal(dens, plain_dens)):
+                        raise AssertionError(f"{label}: the gated march with its residual differs from the plain one")
+                    modes["gated residual"] += 1
+                    plain = slab.replay_slabs(feats, vol, lut, sign, pg, img, g_small, grad, u8, dens, plane)
+                    for route, d in (("stored", dens), ("re-sampled", None)):
+                        got = slab_replay.replay_cuda(feats, vol, lut, sign, pg, img, g_small, grad, u8, d, words)
+                        torch.cuda.synchronize()
+                        if smooth:
+                            if not torch.equal(plain[1], got[1]):
+                                raise AssertionError(f"{label} gated {route}: the step range differs")
+                            got = (slab.dense_dd(got[0], got[1]), *got[1:])
+                        hold("slab_replay", plain[0], got[0], f"{label} gated {route} {'dd' if smooth else 'd_vol'}")
+                        if shading and not smooth:
+                            hold("slab_replay", plain[1], got[1], f"{label} gated {route} d_grad")
+                        hold("slab_replay", plain[2], got[2], f"{label} gated {route} d_lut", lut)
+                        modes["gated replay"] += 1
+                    if stream == "f32":
+                        pgc = pg.replace(camera_grads=True)
+                        plain = slab.replay_slabs(feats, vol, lut, sign, pgc, img, g_small, grad, gate=plane)
+                        got = slab_replay.replay_cuda(feats, vol, lut, sign, pgc, img, g_small, grad, gate=words)
+                        torch.cuda.synchronize()
+                        if smooth:
+                            got = (slab.dense_dd(got[0], got[1]), *got[1:])
+                        hold("slab_replay", plain[0], got[0], f"{label} gated camera {'dd' if smooth else 'd_vol'}")
+                        hold("slab_replay", plain[-1], got[-1], f"{label} gated camera d_feats")
+                        modes["gated camera"] += 1
+    log(f"small new modes: {json.dumps(modes)} cases; B1 bit for bit in coloring, first-hit (which changed the image "
+        f"in {n_first_changed}) and the gated residual; B2 within the rule (max abs err {err['slab_replay']:.3e}, "
+        f"over its scale {rel['slab_replay']:.3e}); B1's (block, batch) pairs staged / direct {small_routes['modes']}")
+    want_modes = {"coloring": 48, "coloring replay": 48, "first-hit": 48, "gated residual": 48, "gated replay": 96,
+                  "gated camera": 24, "coloring camera": 24}
+    if modes != want_modes or n_first_changed < 24:
+        raise AssertionError(f"new-mode cases {modes}, expected {want_modes}; first-hit changed {n_first_changed}")
+
     # phase 4: serving at full size
     configs = {
         "bench": RenderParams(
@@ -1340,6 +1494,77 @@ def main(argv=None) -> int:
         gate_alone[name], _ = time_gate(name, gate_scene, cm0, gate_p, feats, sign)
         log(f"gate alone {name}: {json.dumps(gate_alone[name])}")
     del dense
+
+    # phase 5b: importance coloring and first-hit at full size on the teapot,
+    # RenderParams()'s defaults (shaded, smoothed, nearest, step .01 -> 128
+    # f32 planes) with use_importance_coloring, and with use_opacity off
+    mode_configs = {"coloring": RenderParams(use_importance_coloring=True), "first_hit": RenderParams(use_opacity=False)}
+    mode_renderers = {name: make_renderer(teapot, p, FULL_H, FULL_W, backend="slab_cuda", device=dev)
+                      for name, p in mode_configs.items()}
+    mode_frames, mode_counts = {}, {}
+    # the coloring and first-hit serving path starts here
+    slab_march.LAUNCHES = slab_replay.LAUNCHES = lookahead.STRAIGHT_LAUNCHES = lookahead.CONE_LAUNCHES = 0
+    cam = Camera(aspect=FULL_W / FULL_H).orbit(2.0, 0.0, 0.0)
+    for name, render in mode_renderers.items():
+        before = counts()
+        for i in range(FRAMES):
+            img = render(cam.orbit(2.0 * i, 0.0, 0.0).matrices())
+            if i == 0:
+                mode_frames[name] = img
+        torch.cuda.synchronize()
+        mode_counts[name] = tuple(a - b for a, b in zip(counts(), before))
+    mode_launches = counts()  # the coloring and first-hit serving path ends here
+    if slab_replay.LAUNCHES or any(c != (FRAMES, 0, 0) for c in mode_counts.values()):
+        raise AssertionError(f"coloring / first-hit serving: (march, straight, cone) launches {mode_counts}")
+    log(f"coloring / first-hit serving: {mode_launches[0]} march launches for {len(mode_configs) * FRAMES} frames")
+    cm0 = cam.matrices()
+    mode_results = {}
+    for name, p in mode_configs.items():
+        img = mode_frames[name]
+        if tuple(img.shape) != (FULL_H, FULL_W, 4) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{name}: bad frame {tuple(img.shape)}")
+        if float((img[..., 3] > 0.5).float().mean()) < 0.05:
+            raise AssertionError(f"{name}: the frame is empty")
+
+        def plain_frame(p=p):
+            return slab_march.render(teapot, cm0, p, FULL_H, FULL_W, march_fn=slab.march_slabs)
+
+        plain = plain_frame()
+        if not torch.equal(plain, img):
+            raise AssertionError(f"{name}: frame 0 differs from the plain version by "
+                                 f"{float((plain - img).abs().max()):.3e}")
+        hold("slab_march", plain, img, f"{name} frame 0 vs plain")
+        composited_img = slab_march.render(teapot, cm0, p.replace(use_importance_coloring=False, use_opacity=True),
+                                           FULL_H, FULL_W)
+        differing = float(((img - composited_img).abs().amax(-1) > 1e-6).float().mean())
+        if differing <= 0.0:
+            raise AssertionError(f"{name}: the frame equals the TF-composited one")
+        del plain, composited_img
+        feats, vol, lut, sign, grad, u8 = slab_march.prepare(teapot, cm0, p, FULL_H, FULL_W)
+        imp = (slab_march.importance_perm(teapot.importance, slab.dominant_axis(cm0)[0], vol.shape[0]).contiguous()
+               if p.use_importance_coloring else None)
+        march_args = (feats, vol, lut, sign, p, grad)
+        rays = FULL_H * FULL_W
+        _, dens = slab.march_slabs(*march_args, u8, emit_density=True, imp_perm=imp)
+        threshold = slab.march_knobs(p, u8)[0]
+        d0 = dens.reshape(vol.shape[0], -1, rays)[:, 0]
+        composited = int((d0 >= threshold).sum())
+        stencils = stencil_steps(feats, vol, sign, p, threshold, d0 != 0.0) if p.use_gaussian_smoothing else 0
+        del dens, d0
+        b1_bound = bound(nbytes(feats, vol, lut, grad, imp) + rays * 16,
+                         composited * MARCH_OPS_PER_STEP + stencils * SMOOTH_OPS_PER_STEP)
+        row = dict(
+            planes=int(vol.shape[0]), u8=u8, march_ms=cuda_ms(lambda: slab_march.march_cuda(
+                *march_args, u8=u8, imp_perm=imp), 20),
+            plain_march_ms=cuda_ms(lambda: slab.march_slabs(*march_args, u8, imp_perm=imp), 2),
+            bound_ms=b1_bound[0], bound_by=b1_bound[1], composited_steps=composited, stencil_steps=stencils,
+            stage=staged_pairs(feats, vol, grad, u8, p), frame_ms=cuda_ms(lambda: mode_renderers[name](cm0), 10),
+            plain_frame_ms=cuda_ms(plain_frame, 1), pixels_differing_from_composited=differing,
+            profile=device_profile(lambda: mode_renderers[name](cm0), 5),
+        )
+        row["rays_per_s"] = rays / (row["frame_ms"] / 1e3)
+        mode_results[name] = row
+        log(f"{name} serving: {json.dumps(row)}")
 
     # phase 6: the training step at full size
     train_p = RenderParams(
@@ -1860,6 +2085,163 @@ def main(argv=None) -> int:
         log(f"{label}: {json.dumps(row)}")
         del out, g, dd, dense, dense0, steps, plain_dd
 
+    # phase 6d: the training steps of the new modes at 1024x768 on the teapot:
+    # Importance and ImportanceCone (the sweep preset: shaded, nearest, no
+    # smoothing, 256 planes; u8 and the stored residual without camera
+    # gradients where it fits the budget, f32 and the re-sampled replay with
+    # them), the gate built once a step and read by B1 and B2; and importance
+    # coloring with RenderParams()'s defaults (shaded, smoothed; no camera
+    # gradients), d_importance through B2's coloring mode, nothing folded
+    mode_train = {
+        "importance": la_configs["importance"].replace(camera_grads=False),
+        "importance camera": la_configs["importance"].replace(camera_grads=True),
+        "importance_cone": la_configs["importance_cone"].replace(camera_grads=False),
+        "importance_cone camera": la_configs["importance_cone"].replace(camera_grads=True),
+        "coloring": RenderParams(use_importance_coloring=True, camera_grads=False),
+    }
+    cm_train = Camera(aspect=FULL_W / FULL_H, distance=1.0).orbit(30.0, 20.0, 0.0)
+
+    def mode_leaves(p):
+        s = Scene(teapot.volume.clone().requires_grad_(True), teapot.importance.clone().requires_grad_(True),
+                  teapot.tf_lut.clone().requires_grad_(True))
+        cm = cm_train.matrices()
+        if p.camera_grads:
+            cm.inverse_view_proj.requires_grad_(True)
+            cm.position.requires_grad_(True)
+        return s, cm
+
+    def mcounts():
+        return (slab_march.LAUNCHES, slab_replay.LAUNCHES, lookahead.STRAIGHT_LAUNCHES, lookahead.CONE_LAUNCHES,
+                voxel_grad.FOLD_LAUNCHES + voxel_grad.FOLD_SHADED_LAUNCHES + voxel_grad.LAUNCHES
+                + voxel_grad.SHADED_LAUNCHES + feats_grad.LAUNCHES)
+
+    mstep0, mper = {}, {}
+    # the new modes' training path starts here
+    slab_march.LAUNCHES = slab_replay.LAUNCHES = lookahead.STRAIGHT_LAUNCHES = lookahead.CONE_LAUNCHES = 0
+    voxel_grad.LAUNCHES = voxel_grad.SHADED_LAUNCHES = voxel_grad.FOLD_LAUNCHES = voxel_grad.FOLD_SHADED_LAUNCHES = 0
+    feats_grad.LAUNCHES = 0
+    for name, p in mode_train.items():
+        before = mcounts()
+        for i in range(MODE_STEPS):
+            s, cm = mode_leaves(p)
+            img = make_renderer(s, p, FULL_H, FULL_W, backend="slab_cuda", device=dev, differentiable=True)(cm)
+            img.sum().backward()
+            if i == 0:
+                mstep0[name] = (img.detach().clone(), s.volume.grad, s.tf_lut.grad, s.importance.grad,
+                                cm.position.grad)
+        torch.cuda.synchronize()
+        mper[name] = tuple(a - b for a, b in zip(mcounts(), before))
+    mtrain_launches = mcounts()  # the new modes' training path ends here
+    for name, p in mode_train.items():
+        cone = p.use_cone_importance_check and not p.use_importance_coloring
+        straight = p.use_importance_rendering and not cone and not p.use_importance_coloring
+        want = (MODE_STEPS, MODE_STEPS, MODE_STEPS * straight, MODE_STEPS * cone, 0)
+        if mper[name] != want:
+            raise AssertionError(f"mode training {name}: (march, replay, straight, cone, B3-B5) launches "
+                                 f"{mper[name]}, expected {want}")
+    log(f"mode training: (march, replay, straight, cone, B3-B5) launches {mtrain_launches} for {len(mode_train)} x "
+        f"{MODE_STEPS} steps ({mper})")
+
+    mtraining = {}
+    for name, p in mode_train.items():
+        rays = FULL_H * FULL_W
+        coloring = p.use_importance_coloring
+        label = f"mode training {name} {FULL_H}x{FULL_W}"
+        img, d_vol, d_lut, d_imp, d_pos = mstep0[name]
+        finite = [img, d_vol, d_lut] + ([d_imp] if coloring else []) + ([d_pos] if p.camera_grads else [])
+        if not all(bool(torch.isfinite(t).all()) for t in finite):
+            raise AssertionError(f"{label}: non-finite step 0")
+        if coloring:
+            if float(d_imp.abs().max()) <= 0.0 or bool(d_lut.any()):
+                raise AssertionError(f"{label}: no d_importance, or a LUT gradient")
+        elif d_imp is not None or float(d_vol.abs().max()) <= 0.0:
+            raise AssertionError(f"{label}: a gradient on the importance, or none on the volume")
+        if p.camera_grads and float(d_pos.abs().max()) <= 0.0:
+            raise AssertionError(f"{label}: no camera gradient")
+
+        def plain_step(p=p):
+            ps, cm = mode_leaves(p)
+            out = slab.render_diff(ps, cm, p, FULL_H, FULL_W)
+            out.sum().backward()
+            return out.detach(), ps.volume.grad, ps.tf_lut.grad, ps.importance.grad, cm.position.grad
+
+        t0 = time.perf_counter()
+        want = plain_step()
+        torch.cuda.synchronize()
+        plain_step_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(want[0], img):
+            raise AssertionError(f"{label}: the image differs from the plain step's by "
+                                 f"{float((want[0] - img).abs().max()):.3e}")
+        agree = {}
+        for i, what in ((1, "d_volume"), (3, "d_importance"), (4, "d_position")):
+            if want[i] is not None:
+                r, _ = hold("slab_replay", want[i], mstep0[name][i], f"{label} step 0 {what}")
+                agree[what] = dict(max_abs_err=r.max_abs_err, scale=r.scale, edge_share=r.edge_frac)
+        if not coloring:
+            r, worst = hold("slab_replay", want[2], d_lut, f"{label} step 0 d_lut", teapot.tf_lut)
+            agree["d_lut"] = dict(max_abs_err=r.max_abs_err, scale=r.scale, opaque_err_over_magnitude=worst)
+        del want
+
+        # the kernels on this step's inputs
+        cm = cm_train.matrices()
+        feats, vol, lut, sign, grad, u8 = slab_march.prepare(teapot, cm, p, FULL_H, FULL_W)
+        u8 = u8 and not p.camera_grads
+        if not u8:
+            feats, vol, lut, sign, grad, _ = slab_march.prepare(teapot, cm, p.replace(u8_volume=False), FULL_H,
+                                                                FULL_W)
+        words = plane = imp = None
+        gate_ms = None
+        if coloring:
+            imp = slab_march.importance_perm(teapot.importance, slab.dominant_axis(cm)[0], vol.shape[0]).contiguous()
+        else:
+            cone_feats, levels = slab_march.lookahead_inputs(teapot, cm, p, FULL_H, FULL_W)
+            words = lookahead.gate_cuda(feats, cone_feats, levels, sign, p.subtexel_bits)
+            plane = lookahead.unpack_gate(words, vol.shape[0])
+            gate_ms = cuda_ms(lambda: lookahead.gate_cuda(feats, cone_feats, levels, sign, p.subtexel_bits), 10)
+        stored = slab_replay.use_stored_density(p, vol.shape[0], rays)
+        march_args = (feats, vol, lut, sign, p, grad)
+        res = slab_march.march_cuda(*march_args, u8=u8, emit_density=stored, gate=words, imp_perm=imp)
+        out, dens = res if stored else (res, None)
+        g = torch.ones_like(out)
+        _, resid = slab.march_slabs(*march_args, u8, emit_density=True, gate=plane, imp_perm=imp)
+        threshold = slab.march_knobs(p, u8)[0]
+        d0 = resid.reshape(vol.shape[0], -1, rays)[:, 0]
+        composited = int((d0 >= threshold).sum())
+        stencils = stencil_steps(feats, vol, sign, p, threshold, d0 != 0.0) if p.use_gaussian_smoothing else 0
+        del resid, d0
+        # inputs once, outputs once: d_vol (d_imp under coloring) as f32, d_lut,
+        # d_grad when shaded, d_feats with camera gradients
+        ins = nbytes(feats, vol, lut, grad, imp, words)
+        outs = vol.numel() * 4 + nbytes(lut, grad) + (nbytes(feats) if p.camera_grads else 0)
+        b1_bound = bound(ins + nbytes(out, dens), composited * MARCH_OPS_PER_STEP + stencils * SMOOTH_OPS_PER_STEP)
+        b2_bound = bound(ins + nbytes(out, g, dens) + outs,
+                         composited * REPLAY_OPS_PER_STEP + stencils * SMOOTH_OPS_PER_STEP)
+        s_k, cm_k = mode_leaves(p)
+        render_k = make_renderer(s_k, p, FULL_H, FULL_W, backend="slab_cuda", device=dev, differentiable=True)
+
+        def kernel_step(s=s_k, cm=cm_k, render=render_k):
+            for t in (s.volume, s.tf_lut, s.importance, cm.inverse_view_proj, cm.position):
+                t.grad = None
+            render(cm).sum().backward()
+
+        row = dict(
+            planes=int(vol.shape[0]), u8=u8, stored=stored, shading=p.use_shading,
+            smoothing=p.use_gaussian_smoothing, camera_grads=p.camera_grads, gate_ms=gate_ms,
+            march_ms=cuda_ms(lambda: slab_march.march_cuda(*march_args, u8=u8, emit_density=stored, gate=words,
+                                                           imp_perm=imp), 10),
+            march_bound=b1_bound, stage=staged_pairs(feats, vol, grad, u8, p),
+            replay_ms=cuda_ms(lambda: slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad, u8, dens, words,
+                                                              imp), 10),
+            plain_replay_ms=cuda_ms(lambda: slab.replay_slabs(feats, vol, lut, sign, p, out, g, grad, u8, dens, plane,
+                                                              imp), 1),
+            replay_bound=b2_bound, composited_steps=composited, stencil_steps=stencils,
+            step_ms=cuda_ms(kernel_step, 5), plain_step_ms=plain_step_ms, profile=device_profile(kernel_step, 3),
+            step0=agree,
+        )
+        mtraining[name] = row
+        log(f"{label}: {json.dumps(row)}")
+        del out, dens, g, plane
+
     # phase 7: a few descent steps on the f32 stream
     fit_p = train_p.replace(u8_volume=False)
     dh, dw = TRAIN_SIZES[0]
@@ -1884,7 +2266,8 @@ def main(argv=None) -> int:
 
     # phase 8: the CLI
     with tempfile.TemporaryDirectory() as tmp:
-        for flags in ([], ["--importance", "--cone", "--scene", "teapot"]):
+        for flags in ([], ["--importance", "--cone", "--scene", "teapot"], ["--coloring", "--scene", "teapot"],
+                      ["--first-hit"]):
             out = Path(tmp) / "shot.png"
             before = counts()
             rc = cli.main(["screenshot", *flags, "--output", str(out)])
@@ -1892,7 +2275,7 @@ def main(argv=None) -> int:
             if rc != 0 or data[:8] != b"\x89PNG\r\n\x1a\n":
                 raise AssertionError(f"CLI screenshot {flags} failed (rc {rc}, {len(data)} bytes)")
             launched = tuple(a - b for a, b in zip(counts(), before))
-            if launched != ((1, 0, 1) if flags else (1, 0, 0)):
+            if launched != ((1, 0, 1) if "--cone" in flags else (1, 0, 0)):
                 raise AssertionError(f"CLI screenshot {flags}: (march, straight, cone) launches {launched}")
             out.unlink()
             log(f"cli: screenshot {' '.join(flags)} (smoothing on) wrote a {len(data)}-byte PNG; "
@@ -1943,6 +2326,12 @@ def main(argv=None) -> int:
                                                   stage=row["stage"])
     for name, row in ctraining.items():
         cells[f"camera training {name}"] = dict(B1=[row["fwd_ms"], row["fwd_before_ms"]], stage=row["stage"])
+    for name, row in mode_results.items():  # no --parent kernel has these modes
+        cells[f"{name} serving"] = dict(B1=[row["march_ms"], None], stage=row["stage"])
+    for name, row in mtraining.items():
+        cells[f"mode training {name}"] = dict(B1=[row["march_ms"], None], stage=row["stage"])
+        if row["gate_ms"] is not None:
+            cells[f"mode training {name}"]["B7" if "cone" in name else "B6"] = [row["gate_ms"], None]
     log(json.dumps({"B1_B6_B7_ms_after_before": cells, "B7_occupancy": cone_occupancy,
                     "parent": args.parent or None}))
 
@@ -1975,8 +2364,21 @@ def main(argv=None) -> int:
                             library_ms=g["fold_library_ms"],
                             library="index_add_ of the nonzero folded entries' precomputed corner indices and "
                                     "weights, their computation excluded")
-    rows["slab_march"]["launches"] += gtrain_launches[0] + ctrain_launches[0]
-    rows["slab_replay"]["launches"] += gtrain_launches[1] + ctrain_launches[1]
+    rows["slab_march"]["launches"] += gtrain_launches[0] + ctrain_launches[0] + mode_launches[0] + mtrain_launches[0]
+    rows["slab_replay"]["launches"] += gtrain_launches[1] + ctrain_launches[1] + mtrain_launches[1]
+    rows["lookahead_straight"]["launches"] += mtrain_launches[2]
+    rows["lookahead_cone"]["launches"] += mtrain_launches[3]
+    # the modes of this slice: B1's coloring and first-hit frames, and B1
+    # and B2 in the gated and coloring training steps, each with its bound
+    rows["slab_march"]["modes"] = {
+        **{f"{name} frame": dict(ms=row["march_ms"], plain_ms=row["plain_march_ms"], bound_ms=row["bound_ms"],
+                                 bound_by=row["bound_by"]) for name, row in mode_results.items()},
+        **{f"{name} step": dict(ms=row["march_ms"], bound_ms=row["march_bound"][0], bound_by=row["march_bound"][1])
+           for name, row in mtraining.items()},
+    }
+    rows["slab_replay"]["modes"] = {
+        f"{name} step": dict(ms=row["replay_ms"], plain_ms=row["plain_replay_ms"], bound_ms=row["replay_bound"][0],
+                             bound_by=row["replay_bound"][1]) for name, row in mtraining.items()}
     rows["voxel_grad"]["launches"] += ctrain_launches[2]
     rows["voxel_grad_shaded"]["launches"] += ctrain_launches[3]
     # B5 at 1024x768 in the smoothed bench step with camera gradients
@@ -1989,6 +2391,7 @@ def main(argv=None) -> int:
          "ms": row["ms"], "plain_ms": row["plain_ms"],
          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
          **({"library": row["library"]} if "library" in row else {}),
+         **({"modes": row["modes"]} if "modes" in row else {}),
          **({"bound_ms_old_count": row["bound_ms_old_count"]} if "bound_ms_old_count" in row else {})}
         for name, row in rows.items()
     ]}))

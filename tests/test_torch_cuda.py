@@ -325,8 +325,12 @@ def test_gate_cuda_checks_inputs(scene3):
     words = lookahead.gate_cuda(feats, None, levels, sign, 8)
     with pytest.raises(ValueError, match="gate"):
         slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, gate=words[:-1])
-    with pytest.raises(NotImplementedError, match="residual"):
-        slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, gate=words, emit_density=True)
+    # the gated residual runs, bit for bit with the plain march's
+    img, dens = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, gate=words, emit_density=True)
+    want_img, want_dens = slab.march_slabs(feats, vol, lut, sign, p, grad, u8, emit_density=True,
+                                           gate=lookahead.unpack_gate(words, vol.shape[0]))
+    torch.cuda.synchronize()
+    assert torch.equal(img, want_img) and torch.equal(dens, want_dens)
 
 
 @pytest.fixture(scope="module")
@@ -692,3 +696,182 @@ def test_feats_grad_cuda_checks_inputs(scene256):
     with pytest.raises(ValueError, match="re-sampled replay"):
         slab_replay.replay_cuda(feats, vol, lut, sign, p, dd[0, :3].permute(1, 2, 0).contiguous(),
                                 torch.zeros((H, W, 4), device=vol.device), grad, dens=dd[:, :1])
+
+
+#: the new modes' cases: (interpolation, stream, shading, smoothing)
+MODE_CASES = [(i, s, sh, sm) for i in ("nearest", "trilinear") for s in ("u8", "f32") for sh in (False, True)
+              for sm in (False, True)]
+
+
+def _mode_inputs(scene3, h, v, interp, stream, shading, smooth, **kw):
+    """The 32^3 three-level scene (importance at every level), u8 on native
+    planes or f32 on resampled ones -> (p, feats, vol, lut, sign, grad, u8,
+    imp_perm)."""
+    p = RenderParams(use_gaussian_smoothing=smooth, interpolation=interp, use_shading=shading, u8_volume=True,
+                     camera_grads=False, raymarching_step_size=(1.0 if stream == "u8" else 2.0) / SIDE, **kw)
+    cam = Camera(aspect=W / H, distance=1.3).orbit(h, v, 0.0).matrices()
+    feats, vol, lut, sign, grad, u8 = slab_march.prepare(scene3, cam, p, H, W)
+    assert u8 == (stream == "u8")
+    imp = slab_march.importance_perm(scene3.importance, slab.dominant_axis(cam)[0], vol.shape[0]).contiguous()
+    return p, cam, feats, vol, lut, sign, grad, u8, imp
+
+
+@pytest.mark.parametrize("interp,stream,shading,smooth", MODE_CASES)
+@pytest.mark.parametrize("h,v", ORBITS[:2])
+def test_coloring_march_and_replay_match_plain(scene3, h, v, interp, stream, shading, smooth):
+    """B1's coloring bit for bit with the plain march (with first-hit asked
+    for too: coloring still composites), and B2's coloring route (d_imp by
+    box-hat atomics, d_grad when shaded, fused under smoothing too, no
+    d_lut) against the plain replay by the repo rule."""
+    p, cam, feats, vol, lut, sign, grad, u8, imp = _mode_inputs(scene3, h, v, interp, stream, shading, smooth,
+                                                                use_importance_coloring=True)
+    before = slab_march.LAUNCHES
+    img = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, imp_perm=imp)
+    assert slab_march.LAUNCHES == before + 1
+    want = slab.march_slabs(feats, vol, lut, sign, p, grad, u8, imp_perm=imp)
+    torch.cuda.synchronize()
+    assert torch.equal(img, want)
+    assert not torch.equal(img, slab.march_slabs(feats, vol, lut, sign, p.replace(use_importance_coloring=False),
+                                                 grad, u8))
+    opaque = p.replace(use_opacity=False)
+    assert torch.equal(slab_march.march_cuda(feats, vol, lut, sign, opaque, grad, u8=u8, imp_perm=imp), img)
+    g = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (H, W, 4)).astype(np.float32)).to(img.device)
+    plain = slab.replay_slabs(feats, vol, lut, sign, p, img, g, grad, u8, imp_perm=imp)
+    got = slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g, grad, u8, imp_perm=imp)
+    torch.cuda.synchronize()
+    assert float(plain[0].abs().max()) > 0 and not bool(got[2].any())
+    parity.check_close(plain[0], got[0], "d_imp")
+    if shading:
+        parity.check_close(plain[1], got[1], "d_grad")
+    else:
+        assert got[1] is None
+
+
+@pytest.mark.parametrize("interp,shading,smooth", CAMERA_MODES)
+def test_coloring_camera_replay_matches_plain(scene3, interp, shading, smooth):
+    """B2's coloring route with its camera chain (F_AEXP, the half vector
+    and the gradient field's coordinates; none through the importance or
+    the density) against the plain replay."""
+    p, cam, feats, vol, lut, sign, grad, u8, imp = _mode_inputs(
+        scene3, 30.0, 20.0, interp, "f32", shading, smooth, use_importance_coloring=True)
+    p = p.replace(camera_grads=True)
+    img = slab_march.march_cuda(feats, vol, lut, sign, p, grad, imp_perm=imp)
+    g = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (H, W, 4)).astype(np.float32)).to(img.device)
+    want = slab.replay_slabs(feats, vol, lut, sign, p, img, g, grad, imp_perm=imp)
+    got = slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g, grad, imp_perm=imp)
+    torch.cuda.synchronize()
+    parity.check_close(want[0], got[0], "d_imp")
+    if shading:
+        parity.check_close(want[1], got[1], "d_grad")
+    assert float(want[-1].abs().max()) > 0
+    parity.check_close(want[-1], got[-1], "d_feats")
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("interp,stream,shading,smooth", MODE_CASES)
+def test_first_hit_march_matches_plain(scene3, interp, stream, shading, smooth, gated):
+    """B1's first-hit bit for bit with the plain march, with shading,
+    smoothing and the straight look-ahead gate."""
+    p, cam, feats, vol, lut, sign, grad, u8, _ = _mode_inputs(scene3, 120.0, 10.0, interp, stream, shading, smooth,
+                                                              use_opacity=False, use_importance_rendering=gated)
+    gate = words = None
+    if gated:
+        cone_feats, levels = slab_march.lookahead_inputs(scene3, cam, p, H, W)
+        words = lookahead.gate_cuda(feats, cone_feats, levels, sign, p.subtexel_bits)
+        gate = lookahead.unpack_gate(words, vol.shape[0])
+    img = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, gate=words)
+    want = slab.march_slabs(feats, vol, lut, sign, p, grad, u8, gate=gate)
+    torch.cuda.synchronize()
+    assert torch.equal(img, want)
+    assert not torch.equal(img, slab_march.march_cuda(feats, vol, lut, sign, p.replace(use_opacity=True), grad, u8=u8,
+                                                      gate=words))
+
+
+#: the replay's routes under the gate: (smoothing, stored, camera)
+GATED_ROUTES = [(False, True, False), (False, False, False), (True, True, False), (True, False, False),
+                (False, False, True), (True, False, True)]
+
+
+@pytest.mark.parametrize("cone", [False, True], ids=["straight", "cone"])
+@pytest.mark.parametrize("smooth,stored,camera", GATED_ROUTES)
+@pytest.mark.parametrize("interp,shading", [("trilinear", False), ("nearest", True)])
+def test_gated_march_and_replay_match_plain(scene3, interp, shading, smooth, stored, camera, cone):
+    """B1 with the gate and its residual bit for bit, and B2 gated on every
+    route (fused, unfused under smoothing, stored or re-sampled, camera)
+    against the plain replay gated by the same bits."""
+    p, cam, feats, vol, lut, sign, grad, u8, _ = _mode_inputs(
+        scene3, 30.0, 20.0, interp, "f32" if camera else "u8", shading, smooth, use_importance_rendering=True,
+        use_cone_importance_check=cone)
+    p = p.replace(camera_grads=camera)
+    cone_feats, levels = slab_march.lookahead_inputs(scene3, cam, p, H, W)
+    words = lookahead.gate_cuda(feats, cone_feats, levels, sign, p.subtexel_bits)
+    gate = lookahead.unpack_gate(words, vol.shape[0])
+    assert bool(gate.any())
+    if stored:
+        img, dens = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, gate=words, emit_density=True)
+        img_p, dens_p = slab.march_slabs(feats, vol, lut, sign, p, grad, u8, emit_density=True, gate=gate)
+        torch.cuda.synchronize()
+        assert torch.equal(img, img_p) and torch.equal(dens, dens_p)
+    else:
+        img, dens = slab_march.march_cuda(feats, vol, lut, sign, p, grad, u8=u8, gate=words), None
+    g = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (H, W, 4)).astype(np.float32)).to(img.device)
+    want = slab.replay_slabs(feats, vol, lut, sign, p, img, g, grad, u8, dens, gate)
+    before = slab_replay.LAUNCHES
+    got = slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g, grad, u8, dens, words)
+    assert slab_replay.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    if smooth:
+        assert torch.equal(want[1], got[1]), "step range"
+        got = (slab.dense_dd(got[0], got[1]), *got[1:])
+    parity.check_close(want[0], got[0], "d_vol" if not smooth else "dd")
+    if shading and not smooth:
+        parity.check_close(want[1], got[1], "d_grad")
+    parity.check_lut_grad(want[2], got[2], lut, "d_lut")
+    if camera:
+        parity.check_close(want[-1], got[-1], "d_feats")
+    ungated = slab.replay_slabs(feats, vol, lut, sign, p, slab.march_slabs(feats, vol, lut, sign, p, grad, u8), g,
+                                grad, u8)
+    assert not torch.equal(ungated[2], want[2]), "the gate changed nothing"
+
+
+@pytest.mark.parametrize("mode", ["straight", "cone", "coloring", "coloring shaded"])
+def test_new_modes_differentiable_renderer_counts_launches(scene3, device, mode):
+    """The training step with look-ahead (B6 or B7, then B1 and B2 gated)
+    and with coloring (B1 and B2 in their coloring modes) through
+    ``make_renderer(..., differentiable=True)``: launch counts, and the
+    image and the volume, LUT and importance gradients against the plain
+    step's."""
+    kw = dict(straight=dict(use_importance_rendering=True),
+              cone=dict(use_importance_rendering=True, use_cone_importance_check=True),
+              coloring=dict(use_importance_coloring=True, use_shading=False),
+              **{"coloring shaded": dict(use_importance_coloring=True, use_shading=True)})[mode]
+    p = RenderParams(interpolation="trilinear", raymarching_step_size=1.0 / SIDE, camera_grads=False, **kw)
+
+    def step(backend):
+        s = Scene(scene3.volume.clone().requires_grad_(True), scene3.importance.clone().requires_grad_(True),
+                  scene3.tf_lut.clone().requires_grad_(True))
+        cam = Camera(aspect=W / H, distance=1.3).orbit(30.0, 20.0, 0.0).matrices()
+        img = make_renderer(s, p, H, W, backend=backend, device=device, differentiable=True)(cam)
+        img.sum().backward()
+        return img.detach(), s.volume.grad, s.tf_lut.grad, s.importance.grad
+
+    def counts():
+        return (slab_march.LAUNCHES, slab_replay.LAUNCHES, lookahead.STRAIGHT_LAUNCHES, lookahead.CONE_LAUNCHES)
+
+    before = counts()
+    got = step("slab_cuda")
+    launched = tuple(a - b for a, b in zip(counts(), before))
+    assert launched == (1, 1, int(mode == "straight"), int(mode == "cone"))
+    want = step("slab")
+    assert torch.equal(want[0], got[0])
+    if mode.startswith("coloring"):
+        assert float(got[3].abs().max()) > 0 and not bool(got[2].any())
+        parity.check_close(want[3], got[3], "d_importance")
+        if mode == "coloring shaded":
+            parity.check_close(want[1], got[1], "d_volume")
+        else:
+            assert not bool(got[1].any())
+    else:
+        assert got[3] is None
+        parity.check_close(want[1], got[1], "d_volume")
+        parity.check_lut_grad(want[2], got[2], scene3.tf_lut, "d_lut")

@@ -1,6 +1,7 @@
 """volym_tpu_torch's entry points on a machine without CUDA: the import
-boundary (no jax), the CLI, the PNG writer, and the modes and devices that
-must raise rather than fall back."""
+boundary (no jax), the CLI, the PNG writer, the render modes held to the
+plain render and to the JAX package's jnp golden, and the modes and devices
+that must raise rather than fall back."""
 
 import os
 import struct
@@ -9,11 +10,14 @@ import sys
 import zlib
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
 
-from volym_tpu_torch import Camera, RenderParams, Scene, cli
+import volym_tpu as vj
+from volym_tpu.render import slab as jslab
+from volym_tpu_torch import Camera, RenderParams, Scene, cli, convert, parity
 from volym_tpu_torch import io as vio
 from volym_tpu_torch.ops import slab_march
 from volym_tpu_torch.render import slab
@@ -89,10 +93,22 @@ def test_cli_run_saves_last_frame(tmp_path, monkeypatch):
      ["--no-gaussian", "--coloring"], ["--no-gaussian", "--profile", "x"]],
 )
 def test_cli_unported_modes_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError):
-        cli.main(["screenshot", *flags, "--side", "8", "--width", "8", "--height", "8",
-                  "--device", "cpu", "--renderer", "slab", "--output", str(tmp_path / "x.png")])
-    assert not (tmp_path / "x.png").exists()
+    """``--first-hit`` and ``--coloring`` (which replaces ``--importance``)
+    write the plain render of their flags' parameters; ``--profile`` is
+    still not ported and raises, writing nothing."""
+    argv = ["screenshot", *flags, "--scene", "teapot", "--side", "8", "--width", "8", "--height", "8",
+            "--device", "cpu", "--renderer", "slab", "--output", str(tmp_path / "x.png")]
+    if "--profile" in flags:
+        with pytest.raises(NotImplementedError):
+            cli.main(argv)
+        assert not (tmp_path / "x.png").exists()
+        return
+    assert cli.main(argv) == 0
+    args = cli.build_parser().parse_args(argv)
+    p = cli._params(args)
+    assert p.use_importance_coloring == ("--coloring" in flags) and p.use_opacity == ("--first-hit" not in flags)
+    want = slab.render(cli._default_scene(args), cli._camera(args).matrices(), p, 8, 8)
+    np.testing.assert_array_equal(read_png(tmp_path / "x.png"), vio.to_uint8_image(want.numpy()))
 
 
 @pytest.mark.parametrize(
@@ -101,14 +117,24 @@ def test_cli_unported_modes_raise(tmp_path, flags):
      dict(use_importance_rendering=True, use_importance_coloring=True), dict(use_opacity=False)],
 )
 def test_renderer_unported_modes_raise(kw):
-    with pytest.raises(NotImplementedError):
-        make_renderer(Scene.synthetic("sphere", side=8), BASE.replace(**kw), 8, 8, backend="slab", device="cpu")
+    """First-hit and coloring (with look-ahead asked for too: coloring
+    replaces it) through ``make_renderer``, held to the JAX package's jnp
+    golden (eager) on the same 8^3 teapot by the repo's rule."""
+    sj = vj.Scene.synthetic("teapot", side=8)
+    mj = vj.Camera(distance=1.3).orbit(30.0, 20.0, 0.0).matrices()
+    pj = vj.RenderParams(**{"use_gaussian_smoothing": False, "raymarching_step_size": 1.0 / 8, **kw})
+    with jax.disable_jit():
+        want = np.asarray(jslab.render(sj, mj, pj, 8, 8))
+    got = make_renderer(convert.scene_from_jax(sj), convert.render_params(pj), 8, 8, backend="slab",
+                        device="cpu")(convert.camera_matrices_from_jax(mj))
+    parity.check_close(want, got.numpy(), f"{kw}")
 
 
 def test_renderer_differentiable_raises():
     """The differentiable render trains with the default ``RenderParams()``
-    (``camera_grads=True``, smoothing on) and yields camera gradients; the
-    unported render modes raise, naming the mode."""
+    (``camera_grads=True``, smoothing on) and yields camera gradients, with
+    importance coloring (d_importance) and importance look-ahead too; only
+    first-hit raises, naming the mode, as in the JAX package."""
     scene = Scene.synthetic("sphere", side=8)
     vol = scene.volume.clone().requires_grad_(True)
     render = make_renderer(Scene(vol, scene.importance, scene.tf_lut), RenderParams(), 8, 8, backend="slab",
@@ -120,11 +146,17 @@ def test_renderer_differentiable_raises():
     assert float(vol.grad.abs().max()) > 0
     assert float(cm.inverse_view_proj.grad.abs().max()) > 0 and float(cm.position.grad.abs().max()) > 0
     diff = BASE.replace(camera_grads=False)
-    for kw, name in ((dict(use_gaussian_smoothing=True, use_opacity=False), "first-hit"),
-                     (dict(use_importance_coloring=True), "coloring"),
-                     (dict(use_importance_rendering=True), "look-ahead"), (dict(use_opacity=False), "first-hit")):
-        with pytest.raises(NotImplementedError, match=name):
+    for kw in (dict(use_gaussian_smoothing=True, use_opacity=False), dict(use_opacity=False)):
+        with pytest.raises(NotImplementedError, match="first-hit"):
             make_renderer(scene, diff.replace(**kw), 8, 8, backend="slab", device="cpu", differentiable=True)
+    teapot = Scene.synthetic("teapot", side=8)
+    for kw, leaf in ((dict(use_importance_coloring=True), "importance"), (dict(use_importance_rendering=True), "volume")):
+        s = Scene(teapot.volume.clone(), teapot.importance.clone(), teapot.tf_lut)
+        getattr(s, leaf).requires_grad_(True)
+        img = make_renderer(s, diff.replace(**kw), 8, 8, backend="slab", device="cpu", differentiable=True)(cm)
+        img.sum().backward()
+        grad = getattr(s, leaf).grad
+        assert bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0, kw
 
 
 def test_renderer_differentiable_renders_on_cpu():

@@ -9,13 +9,14 @@ in the batch (the coordinates are monotone in the step) and reduced over
 the tile; a sample then reads its texels from the window.  A texel outside
 the window would be another texel, silently.  ``slab_march.stage_plan``
 transcribes that computation in torch.  Here, with ``hypothesis`` drawing
-cameras, tiles, K, sampling, smoothing, shading and where each ray's alpha
-ends its march, every texel index that the plain version's taps
-(``slab._bilinear_taps`` / ``slab._nearest_tap`` at ``slab._step_coords``)
-give for every sample a live ray takes lies inside the window of its step:
-the density sample (under smoothing the plain row j + 3 that the sliding
-window takes at step j) and the gradient field's at the step's own
-coordinates.  The transcription's split of (block, batch) pairs into
+cameras, tiles, K, sampling, smoothing, shading, importance coloring and
+where each ray's alpha ends its march, every texel index that the plain
+version's taps (``slab._bilinear_taps`` / ``slab._nearest_tap`` at
+``slab._step_coords``) give for every sample a live ray takes lies inside
+the window of its step: the density sample (under smoothing the plain row
+j + 3 that the sliding window takes at step j), and, in the aux window, the
+gradient field's at the step's own coordinates and coloring's importance
+box tap there.  The transcription's split of (block, batch) pairs into
 staged and direct is also held to a count made by hand, one ray and one
 step at a time in float32 scalars, on two fixed views.
 """
@@ -41,9 +42,10 @@ def _scene():
     return Scene.synthetic("bonsai", side=SIDE, seed=0)
 
 
-def _inputs(scene, h, v, dist, interp, step, smooth, shading):
+def _inputs(scene, h, v, dist, interp, step, smooth, shading, coloring=False):
     p = RenderParams(use_gaussian_smoothing=smooth, interpolation=interp, raymarching_step_size=step,
-                     use_shading=shading, u8_volume=True, density_threshold=0.12, camera_grads=False)
+                     use_shading=shading, u8_volume=True, density_threshold=0.12, camera_grads=False,
+                     use_importance_coloring=coloring)
     cam = Camera(aspect=W / H, distance=dist).orbit(h, v, 0.0).matrices()
     feats, vol, _, _, _, u8 = slab_march.prepare(scene, cam, p, H, W)
     return p, feats, vol.shape, u8
@@ -74,10 +76,11 @@ def _block_of(tile):
 @given(
     h=st.floats(0.0, 360.0), v=st.floats(-80.0, 80.0), dist=st.floats(0.9, 3.0), tile=st.sampled_from(TILES),
     batch=st.sampled_from([4, 8, 16]), interp=st.sampled_from(["nearest", "trilinear"]),
-    step=st.sampled_from(STEPS), smooth=st.booleans(), shading=st.booleans(), stop_seed=st.integers(0, 3),
+    step=st.sampled_from(STEPS), smooth=st.booleans(), shading=st.booleans(), coloring=st.booleans(),
+    stop_seed=st.integers(0, 3),
 )
-def test_windows_cover_every_sample(h, v, dist, tile, batch, interp, step, smooth, shading, stop_seed):
-    p, feats, shape, u8 = _inputs(_scene(), h, v, dist, interp, step, smooth, shading)
+def test_windows_cover_every_sample(h, v, dist, tile, batch, interp, step, smooth, shading, coloring, stop_seed):
+    p, feats, shape, u8 = _inputs(_scene(), h, v, dist, interp, step, smooth, shading, coloring)
     n = shape[0]
     f = feats.reshape(feats.shape[0], -1)
     # where each ray's alpha ends its march: never (seed 0) or a random step
@@ -100,12 +103,14 @@ def test_windows_cover_every_sample(h, v, dist, tile, batch, interp, step, smoot
             continue
         blk = block[reads]
         assert bool(plan.visited[b, blk].all()), f"step {j}: a sampling ray's block skips batch {b}"
-        wanted = [("density", plan.dens_box, j + halo)] + ([("gradient", plan.grad_box, j)] if shading else [])
-        for what, boxes, s in wanted:
+        wanted = ([("density", plan.dens_box, j + halo, bilinear)]
+                  + ([("gradient", plan.grad_box, j, bilinear)] if shading else [])
+                  + ([("importance", plan.grad_box, j, False)] if coloring else []))  # its box tap
+        for what, boxes, s, hats in wanted:
             if s > n - 1:
                 continue
             box = boxes[b, blk]
-            r0, r1, c0, c1 = _taps(f[:, reads], torch.full((int(reads.sum()),), s), shape, p.subtexel_bits, bilinear)
+            r0, r1, c0, c1 = _taps(f[:, reads], torch.full((int(reads.sum()),), s), shape, p.subtexel_bits, hats)
             inside = (box[:, 0] <= r0) & (r1 <= box[:, 1]) & (box[:, 2] <= c0) & (c1 <= box[:, 3])
             assert bool(inside.all()), f"step {j}: {int((~inside).sum())} {what} samples read outside the window"
             checked += int(reads.sum())
@@ -202,3 +207,26 @@ def test_unaligned_rows_read_global_memory():
     assert staged == 0 and direct > 0
     plan = slab_march.stage_plan(feats, shape, u8, p)
     assert plan.counts()[0] > 0 and not bool((plan.grad_staged & ~plan.dens_staged).any())
+
+
+def test_unaligned_rows_read_global_memory_coloring():
+    """Under coloring too (shaded: the aux window holds the gradient field
+    and the importance), and the aux window is staged only beside a staged
+    density window."""
+    p, feats, shape, u8 = _inputs(_scene(), 30.0, 20.0, 1.3, "nearest", 1.0 / SIDE, False, True, True)
+    staged, direct = slab_march.stage_plan(feats, shape, u8, p, can_stage=False).counts()
+    assert staged == 0 and direct > 0
+    plan = slab_march.stage_plan(feats, shape, u8, p)
+    assert bool(plan.grad_staged.any()) and not bool((plan.grad_staged & ~plan.dens_staged).any())
+
+
+def test_importance_shares_the_aux_stage():
+    """Coloring's importance adds K slices to the aux window: the window
+    stays the same, and a pair whose gradient field fits with its
+    importance fits without it."""
+    base = _inputs(_scene(), 30.0, 20.0, 1.3, "trilinear", 1.0 / SIDE, False, True)
+    colored = _inputs(_scene(), 30.0, 20.0, 1.3, "trilinear", 1.0 / SIDE, False, True, True)
+    a = slab_march.stage_plan(base[1], base[2], base[3], base[0], stage_bytes=4096)
+    b = slab_march.stage_plan(colored[1], colored[2], colored[3], colored[0], stage_bytes=4096)
+    assert torch.equal(a.grad_box, b.grad_box) and torch.equal(a.dens_staged, b.dens_staged)
+    assert not bool((b.grad_staged & ~a.grad_staged).any()) and bool((a.grad_staged & ~b.grad_staged).any())

@@ -92,10 +92,23 @@ def test_cli_screenshot_lookahead(tmp_path):
 
 
 def test_render_diff_lookahead_raises():
-    scene = Scene.synthetic("teapot", side=8)
+    """The gated backward runs: ``render_diff`` and ``make_renderer(...,
+    differentiable=True)`` with look-ahead (straight and cone) give the
+    gated forward render's image bit for bit and finite, nonzero volume and
+    LUT gradients; the importance, which only builds the gate, gets none."""
+    teapot = Scene.synthetic("teapot", side=8)
+    cam = Camera().orbit(30.0, 20.0, 0.0).matrices()
     p = RenderParams(use_gaussian_smoothing=False, camera_grads=False, use_importance_rendering=True)
     for kw in ({}, dict(use_cone_importance_check=True)):
-        with pytest.raises(NotImplementedError, match="look-ahead.*next slice"):
-            slab_march.render_diff(scene, Camera().matrices(), p.replace(**kw), 8, 8)
-        with pytest.raises(NotImplementedError, match="look-ahead"):
-            make_renderer(scene, p.replace(**kw), 8, 8, backend="slab", device="cpu", differentiable=True)
+        pk = p.replace(**kw)
+        want = slab.render(teapot, cam, pk, 8, 8)
+        assert not torch.equal(want, slab.render(teapot, cam, p.replace(use_importance_rendering=False), 8, 8))
+        s = Scene(teapot.volume.clone().requires_grad_(True), teapot.importance.clone().requires_grad_(True),
+                  teapot.tf_lut.clone().requires_grad_(True))
+        for img in (slab_march.render_diff(s, cam, pk, 8, 8),
+                    make_renderer(s, pk, 8, 8, backend="slab", device="cpu", differentiable=True)(cam)):
+            assert torch.equal(img.detach(), want)
+            img.sum().backward()
+        for t in (s.volume, s.tf_lut):
+            assert bool(torch.isfinite(t.grad).all()) and float(t.grad.abs().max()) > 0, kw
+        assert s.importance.grad is None

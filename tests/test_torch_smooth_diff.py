@@ -179,10 +179,20 @@ def test_scatter_dispatches_cpu_tensors_to_plain_version(scene):
 
 def test_render_diff_still_refuses_camera_gradients_and_lookahead(scene):
     """Camera gradients run with smoothing (the default ``RenderParams()``),
-    through B5's plain version; look-ahead is still refused."""
+    through B5's plain version; look-ahead runs too, its gated backward
+    with smoothing and with and without camera gradients, the gated step
+    giving the gated forward's image."""
     cam = Camera().orbit(30.0, 20.0, 0.0).matrices()
     cam.position.requires_grad_(True)
     slab_march.render_diff(scene, cam, RenderParams(interpolation="trilinear"), 8, 8).sum().backward()
     assert float(cam.position.grad.abs().max()) > 0
-    with pytest.raises(NotImplementedError, match="look-ahead"):
-        slab_march.render_diff(scene, cam, RenderParams(camera_grads=False, use_importance_rendering=True), 8, 8)
+    teapot = Scene.synthetic("teapot", side=SIDE)
+    for camera in (False, True):
+        cam.position.grad = None
+        p = RenderParams(interpolation="trilinear", camera_grads=camera, use_importance_rendering=True)
+        s = Scene(teapot.volume.clone().requires_grad_(True), teapot.importance, teapot.tf_lut)
+        img = slab_march.render_diff(s, cam, p, 8, 8)
+        assert torch.equal(img.detach(), slab.render(teapot, cam, p, 8, 8))
+        img.sum().backward()
+        assert bool(torch.isfinite(s.volume.grad).all()) and float(s.volume.grad.abs().max()) > 0
+        assert (cam.position.grad is not None) == camera

@@ -11,8 +11,10 @@ the ray, ``--importance --cone`` along 8 cone directions (the CUDA gate
 kernels with ``slab_cuda``); ``--scene teapot`` is the segmented stand-in
 whose lobster is important.  ``--gaussian`` (Gaussian-smoothed density
 along the ray) is on by default as in the reference; ``--no-gaussian``
-turns it off.  ``--first-hit``, ``--coloring``, ``--distributed`` and
-``--profile`` are not ported yet and raise ``NotImplementedError``.
+turns it off.  ``--coloring`` colours by importance (a heat map; it
+replaces ``--importance``), ``--first-hit`` takes the colour of the first
+sample past the threshold.  ``--distributed`` and ``--profile`` are not
+ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -150,14 +152,14 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--no-shading", action="store_true", help="disable Blinn-Phong shading")
         p.add_argument(
             "--first-hit", action="store_true",
-            help="first-hit-then-break instead of alpha compositing (not ported yet)",
+            help="first-hit-then-break instead of alpha compositing",
         )
         p.add_argument(
             "--importance", action="store_true",
             help="importance look-ahead: skip samples with important material ahead",
         )
         p.add_argument("--cone", action="store_true", help="with --importance: probe 8 cone directions")
-        p.add_argument("--coloring", action="store_true", help="importance coloring (not ported yet)")
+        p.add_argument("--coloring", action="store_true", help="importance coloring: a heat map of the importance grid")
         p.add_argument(
             "--no-u8", action="store_true",
             help="march the float32 volume (default: the uint8 volume in the "

@@ -27,12 +27,14 @@ class RenderParams:
     The slab march reads ``density_threshold``, ``raymarching_step_size``
     (mapped to a plane count), ``interpolation``, ``early_termination_alpha``,
     ``use_shading``, ``use_gaussian_smoothing``, ``subtexel_bits`` and
-    ``u8_volume``, and the look-ahead reads ``use_importance_rendering`` and
-    ``use_cone_importance_check``.  The other importance and first-hit
-    fields are carried so a
-    parameter set converts field by field; the renderer refuses the modes
-    that are not ported.  ``importance_check_ahead_steps`` has no effect on
-    the slab march, as in the JAX package.
+    ``u8_volume``, the look-ahead reads ``use_importance_rendering`` and
+    ``use_cone_importance_check``, importance coloring
+    ``use_importance_coloring`` and first-hit ``use_opacity``; the
+    differentiable render reads ``camera_grads`` and refuses first-hit.
+    The other fields (``fast_math`` and the t-step renderers'
+    ``adaptive_stepping`` and ``max_steps``) are carried so a parameter set
+    converts field by field, and ``importance_check_ahead_steps`` has no
+    effect on the slab march, as in the JAX package.
     """
 
     density_threshold: float = 0.12

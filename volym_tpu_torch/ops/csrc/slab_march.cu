@@ -2,10 +2,12 @@
 // each batch of steps' slab window staged in shared memory.
 //
 // Replaces the TPU kernel volym_tpu/ops/slab_kernel.py::_march_kernel (step
-// body _march_step_body, TF lookup _tf_lookup) in its base and Blinn-Phong
-// shading modes, with nearest or bilinear sampling and the f32 or u8 density
-// stream.  The TPU kernel turns every texel gather into hat-matrix products
-// on the MXU; here each thread reads its texels.  The plain PyTorch
+// body _march_step_body, TF lookup _tf_lookup) in every mode: the TF lookup
+// or the importance heat map (coloring), composited or first-hit, with or
+// without Blinn-Phong shading, Gaussian smoothing and the look-ahead gate,
+// nearest or bilinear sampling and the f32 or u8 density stream.  The TPU
+// kernel turns every texel gather into hat-matrix products on the MXU; here
+// each thread reads its texels.  The plain PyTorch
 // version is volym_tpu_torch/render/slab.py::march_slabs, which evaluates
 // every per-sample expression in the order written below.
 //
@@ -25,10 +27,13 @@
 //      block's window is their min / max (warp reductions and shared
 //      atomics).  Under SMOOTH the density window covers the plain rows the
 //      sliding window takes, row j+3 at step j+3's coordinates; under
-//      SHADING a second window covers the gradient field's three f32
-//      channels at the step's own coordinates (the same window unsmoothed).
-//   2. the copies: K slices of the window (and 3 x K of the gradient
-//      window), rows in 16-byte chunks (the first column aligned down),
+//      SHADING or COLOR a second window (the aux window) covers the
+//      gradient field's three f32 channels and the f32 importance grid at
+//      the step's own coordinates (the same window unsmoothed: a nearest
+//      tap lies inside a bilinear sample's taps).
+//   2. the copies: K slices of the window (and 3 x K of the gradient field
+//      and K of the importance in the aux window), rows in 16-byte chunks
+//      (the first column aligned down),
 //      into one of two STAGE_BYTES buffers.  Batch b+1 is planned, and its
 //      copies issued, before batch b composites, so the copies fly while it
 //      does.  The plan of b+1 takes the rays not done at the start of b, a
@@ -38,8 +43,8 @@
 //      small images, zoomed-out views; rows not 16-byte aligned), from
 //      global memory, the batch's K densities (plain rows j+3 under SMOOTH)
 //      sampled first with all their taps in flight together (the direct
-//      route).  The gradient field is read from the stage or from global
-//      memory.
+//      route).  The gradient field and the importance are read from the
+//      stage or from global memory.
 // A sample reads the same texels through either accessor with the same
 // arithmetic, so both routes give the plain version's bits.  Two samples
 // are skipped because they cannot pass the threshold (a bilinear or box
@@ -86,11 +91,24 @@
 // Look-ahead gate (the TPU kernel's `ahead` input): with a gate, the packed
 // bits of lookahead.cu, a step whose bit is set adds nothing, as if its
 // density were below the threshold (_march_step_body's `m & ~ahead`); it is
-// not sampled at all.  A batch's steps lie in one word (K divides 32),
-// loaded once a batch.  Without a gate (NULL) the word stays 0.  The t >= exit and
-// alpha >= early_alpha breaks are unchanged: a gated step adds no alpha.
-// The wrapper refuses a gate together with EMIT, whose residual belongs to
-// the look-ahead's backward.
+// not sampled at all, so under EMIT its residual stays 0.0, as the replay
+// (slab_replay.cu), gated by the same bits, never reads it.  A batch's
+// steps lie in one word (K divides 32), loaded once a batch.  Without a gate
+// (NULL) the word stays 0.  The t >= exit and alpha >= early_alpha breaks
+// are unchanged: a gated step adds no alpha.
+//
+// Colour modes (MODE, slab_kernel.py:1182-1196, 1248-1256):
+//   MODE_LUT: the TF lookup, composited;
+//   MODE_COLOR (importance coloring): rgba = (min(1.5 imp, 1), 1.2 (1 - imp),
+//     0.2, imp) from the importance grid's box tap at the step's snapped
+//     coordinates, composited; the LUT is not read, the density (plain or
+//     smoothed) is only the threshold mask;
+//   MODE_FIRST_HIT (use_opacity off without coloring): the first step that
+//     passes the mask sets the colour, acc * 0 + rgb, and alpha becomes
+//     max(acc_a, 1), which ends the ray at the next early-alpha test.
+// A template argument, so the TF-composited variants compile as before.
+// Neither of the new modes comes with EMIT (first-hit is forward-only; the
+// training step stores no residual under coloring): 32 + 16 + 16 variants.
 //
 // Gaussian smoothing (SMOOTH, the TPU kernel's smoothing block
 // slab_kernel.py:216-261): the step's density is the smoothed one, a
@@ -131,6 +149,8 @@ constexpr int STAGE_BYTES = 16384;
 constexpr int THREADS = MARCH_TILE_W * MARCH_TILE_H;
 constexpr int K_MAX = MARCH_BATCH > MARCH_BATCH_U8 ? MARCH_BATCH : MARCH_BATCH_U8;
 constexpr unsigned FULL_MASK = 0xffffffffu;
+// the colour modes (ops/slab_march.py MODE_*)
+constexpr int MODE_LUT = 0, MODE_COLOR = 1, MODE_FIRST_HIT = 2;
 static_assert(THREADS % 32 == 0 && THREADS <= 1024, "a tile is whole warps");
 static_assert(32 % MARCH_BATCH == 0 && 32 % MARCH_BATCH_U8 == 0, "a batch lies inside one gate word");
 static_assert(STAGE_BYTES % 16 == 0, "the stage is 16-byte chunks");
@@ -246,7 +266,7 @@ __device__ __forceinline__ StagedTexels<T> staged_slice(const unsigned char* buf
                            w.pitch<T>()};
 }
 
-template <bool BILINEAR, bool U8, bool SHADING, bool EMIT, bool SMOOTH>
+template <bool BILINEAR, bool U8, bool SHADING, bool EMIT, bool SMOOTH, int MODE>
 __global__ void __launch_bounds__(THREADS, SMOOTH ? 2 : 4) slab_march_kernel(
     const float* __restrict__ feats,  // (N_FEATURES, H, W)
     const void* __restrict__ vol_,    // (n, nr, nc) uint8 if U8 else float
@@ -255,10 +275,16 @@ __global__ void __launch_bounds__(THREADS, SMOOTH ? 2 : 4) slab_march_kernel(
     float* __restrict__ out,          // (H, W, 4)
     float* __restrict__ dens,         // (n, SHADING ? 4 : 1, H, W) when EMIT, zero-filled
     const uint32_t* __restrict__ gate,  // (ceil(n / 32), H, W) packed gate bits, or NULL
+    const float* __restrict__ imp,    // (n, nr, nc) importance when MODE_COLOR
     int height, int width, int n, int nr, int nc, int ln, int sign, int subtexel,
     float threshold, float early_alpha, float tf_scale, int can_stage) {
     using T = typename std::conditional<U8, uint8_t, float>::type;
     const T* __restrict__ vol = static_cast<const T*>(vol_);
+    constexpr bool COLOR = MODE == MODE_COLOR, FIRST_HIT = MODE == MODE_FIRST_HIT;
+    static_assert(!(EMIT && MODE != MODE_LUT), "the residual comes only with the TF lookup composited");
+    // the aux window: the gradient field's channels, then the importance
+    constexpr bool AUX = SHADING || COLOR;
+    constexpr int AUX_CHANNELS = (SHADING ? 3 : 0) + (COLOR ? 1 : 0);
     constexpr int K = U8 ? MARCH_BATCH_U8 : MARCH_BATCH;
     constexpr int HALO = SMOOTH ? SMOOTH_HALO : 0;  // the step the density window is for, ahead of j
     // a staged slice whose texels are all below the threshold is not sampled:
@@ -273,7 +299,7 @@ __global__ void __launch_bounds__(THREADS, SMOOTH ? 2 : 4) slab_march_kernel(
     float* s_lut = s_pre + K_MAX * THREADS;
     __shared__ int s_box[3][8];  // the boxes of three batches in turn (density, gradient)
     __shared__ int s_max[2][K];  // the largest texel of each staged slice (float bits, >= 0), two batches
-    __shared__ Window s_win[2][2];  // the density and gradient windows of two batches
+    __shared__ Window s_win[2][2];  // the density and aux windows of two batches
     __shared__ int s_first;
 
     const int tid = threadIdx.x;
@@ -345,7 +371,7 @@ __global__ void __launch_bounds__(THREADS, SMOOTH ? 2 : 4) slab_march_kernel(
                 d = ray_box<BILINEAR>(jlo + HALO, min(jhi + HALO, n - 1), rs, rb, cs, cb, nr, nc, subtexel);
             }
             reduce_box(box, d);
-            if (SHADING && SMOOTH) {
+            if (AUX && SMOOTH) {
                 reduce_box(box + 4, reads ? ray_box<BILINEAR>(jlo, jhi, rs, rb, cs, cb, nr, nc, subtexel)
                                           : empty_box());
             }
@@ -361,13 +387,18 @@ __global__ void __launch_bounds__(THREADS, SMOOTH ? 2 : 4) slab_march_kernel(
         {
             const Window nd = make_window<T>(box, K, 0, can_stage);
             Window ng{};
-            if (SHADING) {
-                ng = make_window<float>(SMOOTH ? box + 4 : box, 3 * K, nd.staged ? K * nd.slice_bytes() : 0,
-                                        can_stage && (nd.staged || !nd.any));
+            if (AUX) {
+                ng = make_window<float>(SMOOTH ? box + 4 : box, AUX_CHANNELS * K,
+                                        nd.staged ? K * nd.slice_bytes() : 0, can_stage && (nd.staged || !nd.any));
             }
             unsigned char* next_buf = smem + (nb & 1) * STAGE_BYTES;
             if (nd.staged) stage_window<K, T>(next_buf, vol, nd, 1, nb * K + HALO, n, nr, nc, sign);
             if (SHADING && ng.staged) stage_window<K, float>(next_buf, grad, ng, 3, nb * K, n, nr, nc, sign);
+            if (COLOR && ng.staged) {  // the importance's K slices after the gradient field's 3 x K
+                Window ni = ng;
+                ni.offset += (SHADING ? 3 * K : 0) * ng.slice_bytes();
+                stage_window<K, float>(next_buf, imp, ni, 1, nb * K, n, nr, nc, sign);
+            }
             cp_async_commit();
             if (tid == 0) {
                 s_win[nb & 1][0] = nd;
@@ -463,14 +494,27 @@ __global__ void __launch_bounds__(THREADS, SMOOTH ? 2 : 4) slab_march_kernel(
                 if (EMIT) dj[0] = density;
                 if (!(density >= threshold)) continue;
 
-                // TF: linear filter, texel centres at (i + 0.5) / ln, clamp-to-edge
-                const TfTexels tx = tf_texels(density, tf_scale, lmax, ln);
-                const int i0 = tx.i0, i1 = tx.i1;
-                const float fr = tx.fr, ufr = tx.ufr;
-                float cr = s_lut[i0 * 4 + 0] * ufr + s_lut[i1 * 4 + 0] * fr;
-                float cg = s_lut[i0 * 4 + 1] * ufr + s_lut[i1 * 4 + 1] * fr;
-                float cbl = s_lut[i0 * 4 + 2] * ufr + s_lut[i1 * 4 + 2] * fr;
-                const float ca = s_lut[i0 * 4 + 3] * ufr + s_lut[i1 * 4 + 3] * fr;
+                float cr, cg, cbl, ca;
+                if (COLOR) {
+                    // the importance heat map from the box tap (wgsl:83-92)
+                    const float im =
+                        gw.staged ? sample_at<false>(staged_slice<float>(buf, gw, (SHADING ? 3 * K : 0) + q), rows,
+                                                     cols, nr, nc)
+                                  : sample<false>(imp + (size_t)(sign > 0 ? j : n - 1 - j) * slice, rows, cols, nr, nc);
+                    cr = fminf(im * 1.5f, 1.0f);
+                    cg = (1.0f - im) * 1.2f;
+                    cbl = 0.2f;
+                    ca = im;
+                } else {
+                    // TF: linear filter, texel centres at (i + 0.5) / ln, clamp-to-edge
+                    const TfTexels tx = tf_texels(density, tf_scale, lmax, ln);
+                    const int i0 = tx.i0, i1 = tx.i1;
+                    const float fr = tx.fr, ufr = tx.ufr;
+                    cr = s_lut[i0 * 4 + 0] * ufr + s_lut[i1 * 4 + 0] * fr;
+                    cg = s_lut[i0 * 4 + 1] * ufr + s_lut[i1 * 4 + 1] * fr;
+                    cbl = s_lut[i0 * 4 + 2] * ufr + s_lut[i1 * 4 + 2] * fr;
+                    ca = s_lut[i0 * 4 + 3] * ufr + s_lut[i1 * 4 + 3] * fr;
+                }
 
                 if (SHADING) {
                     // Blinn-Phong from the precomputed gradient field (wgsl:190-211)
@@ -505,6 +549,13 @@ __global__ void __launch_bounds__(THREADS, SMOOTH ? 2 : 4) slab_march_kernel(
                     }
                 }
 
+                if (FIRST_HIT) {  // the plain version's acc * (1 - m) + rgb * m, max(acc_a, m) with m = 1
+                    acc_r = acc_r * 0.0f + cr;
+                    acc_g = acc_g * 0.0f + cg;
+                    acc_b = acc_b * 0.0f + cbl;
+                    acc_a = fmaxf(acc_a, 1.0f);
+                    continue;
+                }
                 const float alpha = 1.0f - expf(aexp * logf(fmaxf(1.0f - ca, 1e-37f)));
                 const float w = (1.0f - acc_a) * alpha;
                 acc_r = acc_r + cr * w;
@@ -527,11 +578,11 @@ size_t smem_bytes(int ln) {
     return (size_t)2 * STAGE_BYTES + (size_t)K_MAX * THREADS * 4 + (size_t)ln * 4 * sizeof(float);
 }
 
-template <bool BILINEAR, bool U8, bool SHADING, bool EMIT, bool SMOOTH>
+template <bool BILINEAR, bool U8, bool SHADING, bool EMIT, bool SMOOTH, int MODE>
 int launch(const float* feats, const void* vol, const float* grad, const float* lut, float* out, float* dens,
-           const uint32_t* gate, int height, int width, int n, int nr, int nc, int ln, int sign, int subtexel,
-           float threshold, float early_alpha, float tf_scale, cudaStream_t stream) {
-    auto kernel = slab_march_kernel<BILINEAR, U8, SHADING, EMIT, SMOOTH>;
+           const uint32_t* gate, const float* imp, int height, int width, int n, int nr, int nc, int ln, int sign,
+           int subtexel, float threshold, float early_alpha, float tf_scale, cudaStream_t stream) {
+    auto kernel = slab_march_kernel<BILINEAR, U8, SHADING, EMIT, SMOOTH, MODE>;
     const size_t smem = smem_bytes(ln);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -541,10 +592,11 @@ int launch(const float* feats, const void* vol, const float* grad, const float* 
     // on 16 bytes
     const size_t elem = U8 ? 1 : 4;
     const bool can_stage = reinterpret_cast<uintptr_t>(vol) % 16 == 0 && (nc * elem) % 16 == 0 &&
-                           (!SHADING || (reinterpret_cast<uintptr_t>(grad) % 16 == 0 && (nc * 4) % 16 == 0));
+                           (!SHADING || (reinterpret_cast<uintptr_t>(grad) % 16 == 0 && (nc * 4) % 16 == 0)) &&
+                           (MODE != MODE_COLOR || (reinterpret_cast<uintptr_t>(imp) % 16 == 0 && (nc * 4) % 16 == 0));
     const dim3 grid((width + MARCH_TILE_W - 1) / MARCH_TILE_W, (height + MARCH_TILE_H - 1) / MARCH_TILE_H);
-    kernel<<<grid, THREADS, smem, stream>>>(feats, vol, grad, lut, out, dens, gate, height, width, n, nr, nc, ln,
-                                            sign, subtexel, threshold, early_alpha, tf_scale, can_stage);
+    kernel<<<grid, THREADS, smem, stream>>>(feats, vol, grad, lut, out, dens, gate, imp, height, width, n, nr, nc,
+                                            ln, sign, subtexel, threshold, early_alpha, tf_scale, can_stage);
     return (int)cudaGetLastError();
 }
 
@@ -552,42 +604,49 @@ int launch(const float* feats, const void* vol, const float* grad, const float* 
 
 // C entry for ctypes: launches on `stream` and returns the CUDA error (0 on
 // success).  `dens` is NULL unless `emit` is set; `gate` is NULL without
-// look-ahead.
+// look-ahead; `imp` is NULL unless `mode` is MODE_COLOR.  The arguments
+// that came with coloring and first-hit follow `stream`, so that a build of
+// an earlier source, whose entry ends there, takes the same call.
 extern "C" int slab_march_launch(const float* feats, const void* vol, const float* grad,
                                  const float* lut, float* out, float* dens, const uint32_t* gate,
                                  int height, int width,
                                  int n, int nr, int nc, int ln, int sign, int subtexel,
                                  int bilinear, int u8, int shading, int emit, int smooth, float threshold,
-                                 float early_alpha, float tf_scale, void* stream) {
+                                 float early_alpha, float tf_scale, void* stream, const float* imp, int mode) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VOLYM_LAUNCH(B, U, S, E, G)                                                                          \
-    return launch<B, U, S, E, G>(feats, vol, grad, lut, out, dens, gate, height, width, n, nr, nc, ln, sign, \
-                                 subtexel, threshold, early_alpha, tf_scale, s)
-#define VOLYM_LAUNCH_G(B, U, S, E)         \
-    if (smooth) {                          \
-        VOLYM_LAUNCH(B, U, S, E, true);    \
-    } else {                               \
-        VOLYM_LAUNCH(B, U, S, E, false);   \
+    if (mode != MODE_LUT && (emit || (mode != MODE_COLOR && mode != MODE_FIRST_HIT))) return (int)cudaErrorInvalidValue;
+#define VOLYM_LAUNCH(B, U, S, E, G, M)                                                                             \
+    return launch<B, U, S, E, G, M>(feats, vol, grad, lut, out, dens, gate, imp, height, width, n, nr, nc, ln, sign, \
+                                    subtexel, threshold, early_alpha, tf_scale, s)
+#define VOLYM_LAUNCH_G(B, U, S, E, M)       \
+    if (smooth) {                           \
+        VOLYM_LAUNCH(B, U, S, E, true, M);  \
+    } else {                                \
+        VOLYM_LAUNCH(B, U, S, E, false, M); \
     }
-#define VOLYM_LAUNCH_E(B, U, S)            \
-    if (emit) {                            \
-        VOLYM_LAUNCH_G(B, U, S, true);     \
-    } else {                               \
-        VOLYM_LAUNCH_G(B, U, S, false);    \
+#define VOLYM_LAUNCH_M(B, U, S)                                  \
+    if (mode == MODE_COLOR) {                                    \
+        VOLYM_LAUNCH_G(B, U, S, false, MODE_COLOR);              \
+    } else if (mode == MODE_FIRST_HIT) {                         \
+        VOLYM_LAUNCH_G(B, U, S, false, MODE_FIRST_HIT);          \
+    } else if (emit) {                                           \
+        VOLYM_LAUNCH_G(B, U, S, true, MODE_LUT);                 \
+    } else {                                                     \
+        VOLYM_LAUNCH_G(B, U, S, false, MODE_LUT);                \
     }
     const int variant = (bilinear ? 4 : 0) | (u8 ? 2 : 0) | (shading ? 1 : 0);
     switch (variant) {
-        case 0: VOLYM_LAUNCH_E(false, false, false);
-        case 1: VOLYM_LAUNCH_E(false, false, true);
-        case 2: VOLYM_LAUNCH_E(false, true, false);
-        case 3: VOLYM_LAUNCH_E(false, true, true);
-        case 4: VOLYM_LAUNCH_E(true, false, false);
-        case 5: VOLYM_LAUNCH_E(true, false, true);
-        case 6: VOLYM_LAUNCH_E(true, true, false);
-        default: VOLYM_LAUNCH_E(true, true, true);
+        case 0: VOLYM_LAUNCH_M(false, false, false);
+        case 1: VOLYM_LAUNCH_M(false, false, true);
+        case 2: VOLYM_LAUNCH_M(false, true, false);
+        case 3: VOLYM_LAUNCH_M(false, true, true);
+        case 4: VOLYM_LAUNCH_M(true, false, false);
+        case 5: VOLYM_LAUNCH_M(true, false, true);
+        case 6: VOLYM_LAUNCH_M(true, true, false);
+        default: VOLYM_LAUNCH_M(true, true, true);
     }
     return 0;
-#undef VOLYM_LAUNCH_E
+#undef VOLYM_LAUNCH_M
 #undef VOLYM_LAUNCH_G
 #undef VOLYM_LAUNCH
 }

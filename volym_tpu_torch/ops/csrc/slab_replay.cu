@@ -2,11 +2,11 @@
 // ray, with the voxel scatter fused in.
 //
 // Replaces the TPU kernel volym_tpu/ops/slab_bwd_kernel.py::_replay_kernel
-// (step body _replay_step_body) on its fused path, the one the training
-// step runs: the stored-density or re-sampled replay with the voxel scatter
-// fused (slab_bwd_kernel.py:792-815), in the base and Blinn-Phong shading
-// modes, nearest or bilinear, f32 or u8 density stream, and with its camera
-// chain (CAM, below).  The plain PyTorch version is
+// (step body _replay_step_body): the stored-density or re-sampled replay
+// with the voxel scatter fused (slab_bwd_kernel.py:792-815), in the base and
+// Blinn-Phong shading modes, nearest or bilinear, f32 or u8 density stream,
+// under smoothing the per-step cotangents, with its camera chain (CAM), the
+// look-ahead gate and importance coloring (all below).  The plain PyTorch version is
 // volym_tpu_torch/render/slab.py::replay_slabs.
 //
 // Per ray the kernel re-runs the forward's compositing recurrence with the
@@ -93,6 +93,27 @@
 //   - F_HX..F_HZ: d(h.n) * n when shaded.
 // The wrapper zero-fills d_feats; its other rows stay 0.  The chain reads
 // the f32 slices, so CAM comes only without U8 and STORED: 8 variants.
+//
+// Look-ahead gate (_replay_step_body :633-637): with a gate, B1's packed
+// bits (lookahead.cu), a step whose bit is set adds nothing in either
+// direction, on every route: the kernel skips it as the forward did (after
+// advancing the smoothing window, which every step the ray reaches does).
+// A nullable pointer, not a template argument, read at each step it tests.
+//
+// Importance coloring (COLOR; _replay_step_body :588-597, :704-747,
+// :823-835, :878-879): the colour comes from the importance grid's box tap
+// at the step's coordinates, rgba = (min(1.5 imp, 1), 1.2 (1 - imp), 0.2,
+// imp), and the density (plain, or smoothed and re-sampled) is only the
+// threshold mask.  The step's cotangent d_imp = d_r * 1.5 * [1.5 imp < 1] -
+// 1.2 d_g + d_a scatters with the tap's box hat into d_imp (the d_vol
+// argument), and when shaded the gradient-field cotangent with its own
+// hats into d_grad: fused on every route, smoothed too, since nothing is
+// folded (slab_bwd_kernel.py:1684-1691), so neither dd nor steps is
+// written and there is no d_lut.  Under CAM only F_AEXP, the half vector
+// and, shaded and bilinear, the gradient field's coordinate chain run: the
+// box-sampled importance and the density have none, and F_TS none either.
+// COLOR comes without STORED (the training step stores no residual under
+// coloring): 16 + 8 more variants.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,15 +130,18 @@ using namespace volym_slab;
 constexpr float AMBIENT = 0.2f, DIFFUSE = 0.7f, SPECULAR = 0.4f, SHININESS = 24.0f;
 constexpr float INV_SQRT3 = 0.57735026f;
 
-template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH, bool CAM>
+template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH, bool CAM, bool COLOR>
 __device__ __forceinline__ void replay_ray(
     const float* __restrict__ f, const void* __restrict__ vol_, const float* __restrict__ grad,
     const float* __restrict__ s_lut, const float* __restrict__ dens, float4 fin, float4 g,
     float* __restrict__ d_vol, float* __restrict__ d_grad, float* __restrict__ s_dlut, float* __restrict__ dd,
-    int* __restrict__ steps, float* __restrict__ df, size_t n_rays, size_t r, int n, int nr, int nc, int ln,
+    int* __restrict__ steps, float* __restrict__ df, const uint32_t* __restrict__ gate,
+    const float* __restrict__ imp, size_t n_rays, size_t r, int n, int nr, int nc, int ln,
     int sign, int subtexel, float threshold, float early_alpha, float tf_scale) {
     static_assert(!(CAM && (U8 || STORED)), "camera cotangents read the f32 slices");
+    static_assert(!(COLOR && STORED), "coloring re-samples");
     constexpr bool COORD = CAM && BILINEAR;  // the coordinates' chain (box hats have none)
+    constexpr bool UNFUSED = SMOOTH && !COLOR;  // dd and steps: the smoothed density's cotangents
     using T = typename std::conditional<U8, uint8_t, float>::type;
     const T* __restrict__ vol = static_cast<const T*>(vol_);
     constexpr int DW = SHADING ? 4 : 1;
@@ -128,7 +152,7 @@ __device__ __forceinline__ void replay_ray(
     // a ray that misses the box or fails the sign flag composites nothing:
     // its cotangents are zero whatever fin and g hold there
     if (exit_ <= entry || !(f[F_SIGNOK * n_rays] > 0.5f)) {
-        if (SMOOTH) {
+        if (UNFUSED) {
             steps[r] = first;
             steps[n_rays + r] = last;
         }
@@ -164,6 +188,10 @@ __device__ __forceinline__ void replay_ray(
             for (int o = 1; o < SMOOTH_ROWS; ++o) m = fmaxf(m, win.d[o]);
             if (!(sample_bound(m) >= threshold)) continue;  // the stencil of rows below it is below it
         }
+        // the gate's word loaded at every step it tests (an L1 hit but the
+        // first of 32): a word kept across steps held two more registers on
+        // every route, gated or not, and cost the fused route a block an SM
+        if (gate != nullptr && ((__ldg(gate + (size_t)(j >> 5) * n_rays + r) >> (j & 31)) & 1u)) continue;
         const float rows = snap(clampf(rs * jf + rb, 0.0f, rmax), subtexel);
         const float cols = snap(clampf(cs * jf + cb, 0.0f, cmax), subtexel);
         const size_t k = (size_t)(sign > 0 ? j : n - 1 - j);
@@ -178,14 +206,27 @@ __device__ __forceinline__ void replay_ray(
         }
         if (!(density >= threshold)) continue;
 
-        const float c_raw = density * tf_scale - 0.5f;
-        const TfTexels tx = tf_texels(density, tf_scale, lmax, ln);
-        const int i0 = tx.i0, i1 = tx.i1;
-        const float fr = tx.fr, ufr = tx.ufr;
-        const float tf_r = s_lut[i0 * 4 + 0] * ufr + s_lut[i1 * 4 + 0] * fr;
-        const float tf_g = s_lut[i0 * 4 + 1] * ufr + s_lut[i1 * 4 + 1] * fr;
-        const float tf_b = s_lut[i0 * 4 + 2] * ufr + s_lut[i1 * 4 + 2] * fr;
-        const float tf_a = s_lut[i0 * 4 + 3] * ufr + s_lut[i1 * 4 + 3] * fr;
+        // the colour before shading: the TF lookup, or the importance heat map
+        float c_raw = 0.0f, fr = 0.0f, ufr = 0.0f, im = 0.0f, tf_r, tf_g, tf_b, tf_a;
+        int i0 = 0, i1 = 0;
+        if (COLOR) {
+            im = sample<false>(imp + k * slice, rows, cols, nr, nc);
+            tf_r = fminf(im * 1.5f, 1.0f);
+            tf_g = (1.0f - im) * 1.2f;
+            tf_b = 0.2f;
+            tf_a = im;
+        } else {
+            c_raw = density * tf_scale - 0.5f;
+            const TfTexels tx = tf_texels(density, tf_scale, lmax, ln);
+            i0 = tx.i0;
+            i1 = tx.i1;
+            fr = tx.fr;
+            ufr = tx.ufr;
+            tf_r = s_lut[i0 * 4 + 0] * ufr + s_lut[i1 * 4 + 0] * fr;
+            tf_g = s_lut[i0 * 4 + 1] * ufr + s_lut[i1 * 4 + 1] * fr;
+            tf_b = s_lut[i0 * 4 + 2] * ufr + s_lut[i1 * 4 + 2] * fr;
+            tf_a = s_lut[i0 * 4 + 3] * ufr + s_lut[i1 * 4 + 3] * fr;
+        }
         float cr = tf_r, cg = tf_g, cbl = tf_b;
 
         // the coordinates' chain masks: the raw coordinate strictly inside
@@ -286,18 +327,26 @@ __device__ __forceinline__ void replay_ray(
             d_b = d_b * lit;
         }
 
-        // TF: d_lut on the two texels, dd through the texel slope
-        const float d_rgba[4] = {d_r, d_g, d_b, d_a};
-        float d_c = 0.0f;
+        float ddv = 0.0f;  // the density cotangent (none under COLOR)
+        bool tf_in = false;
+        if (COLOR) {
+            // d_imp, scattered with the importance tap's box hat
+            const float d_imp = d_r * (im * 1.5f < 1.0f ? 1.5f : 0.0f) - d_g * 1.2f + d_a;
+            atomicAdd(d_vol + k * slice + nearest_index(rows, cols, nr, nc), d_imp);
+        } else {
+            // TF: d_lut on the two texels, dd through the texel slope
+            const float d_rgba[4] = {d_r, d_g, d_b, d_a};
+            float d_c = 0.0f;
 #pragma unroll
-        for (int ch = 0; ch < 4; ++ch) {
-            atomicAdd(s_dlut + i0 * 4 + ch, d_rgba[ch] * ufr);
-            atomicAdd(s_dlut + i1 * 4 + ch, d_rgba[ch] * fr);
-            d_c = d_c + d_rgba[ch] * (s_lut[i1 * 4 + ch] - s_lut[i0 * 4 + ch]);
+            for (int ch = 0; ch < 4; ++ch) {
+                atomicAdd(s_dlut + i0 * 4 + ch, d_rgba[ch] * ufr);
+                atomicAdd(s_dlut + i1 * 4 + ch, d_rgba[ch] * fr);
+                d_c = d_c + d_rgba[ch] * (s_lut[i1 * 4 + ch] - s_lut[i0 * 4 + ch]);
+            }
+            tf_in = fr > 0.0f && c_raw > 0.0f && c_raw < lmax;
+            ddv = tf_in ? d_c * tf_scale : 0.0f;
         }
-        const bool tf_in = fr > 0.0f && c_raw > 0.0f && c_raw < lmax;
-        const float ddv = tf_in ? d_c * tf_scale : 0.0f;
-        if (SMOOTH) {
+        if (UNFUSED) {
             if (tf_in || lit_on) {
                 // the steps since the previous written one carry no cotangent
                 if (last >= 0) {
@@ -330,7 +379,7 @@ __device__ __forceinline__ void replay_ray(
             a_aexp = a_aexp + d_beta * log1ma * (alpha - 1.0f);
             if (COORD) {
                 float d_rows = 0.0f, d_cols = 0.0f;
-                if (!SMOOTH) {
+                if (!SMOOTH && !COLOR) {
                     const float2 ds = dsample(reinterpret_cast<const float*>(vol) + k * slice, rows, cols, nr, nc);
                     d_rows = rows_in ? ddv * ds.x : 0.0f;
                     d_cols = cols_in ? ddv * ds.y : 0.0f;
@@ -346,11 +395,11 @@ __device__ __forceinline__ void replay_ray(
                 a_rb = a_rb + d_rows;
                 a_cs = a_cs + d_cols * jf;
                 a_cb = a_cb + d_cols;
-                if (SMOOTH) a_ts = a_ts + ddv * smooth_density_dts(win.d, j, rs, rb, cs, cb, ts, n, nr, nc);
+                if (UNFUSED) a_ts = a_ts + ddv * smooth_density_dts(win.d, j, rs, rb, cs, cb, ts, n, nr, nc);
             }
         }
     }
-    if (SMOOTH) {
+    if (UNFUSED) {
         steps[r] = first;
         steps[n_rays + r] = last;
     }
@@ -366,28 +415,38 @@ __device__ __forceinline__ void replay_ray(
             df[F_RB * n_rays] = a_rb;
             df[F_CS * n_rays] = a_cs;
             df[F_CB * n_rays] = a_cb;
-            if (SMOOTH) df[F_TS * n_rays] = a_ts;
+            if (UNFUSED) df[F_TS * n_rays] = a_ts;
         }
     }
 }
 
-template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH, bool CAM>
-__global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
-    const float* __restrict__ feats,  // (N_FEATURES, H, W)
-    const void* __restrict__ vol,     // (n, nr, nc) uint8 if U8 else float; unread when STORED
-    const float* __restrict__ grad,   // (3, n, nr, nc) when SHADING and not STORED
-    const float* __restrict__ lut,    // (ln, 4)
-    const float* __restrict__ dens,   // (n, SHADING ? 4 : 1, H, W) when STORED
-    const float* __restrict__ fin,    // (H, W, 4) the forward's image
-    const float* __restrict__ gimg,   // (H, W, 4) its cotangent
-    float* __restrict__ d_vol,        // (n, nr, nc), zero-filled
-    float* __restrict__ d_grad,       // (3, n, nr, nc) when SHADING, zero-filled
-    float* __restrict__ d_lut,        // (ln, 4), zero-filled
-    float* __restrict__ dd,           // (n, SHADING ? 4 : 1, H, W) when SMOOTH, written in each ray's range
-    int* __restrict__ steps,          // (2, H, W) when SMOOTH: first and last written step
-    float* __restrict__ d_feats,      // (N_FEATURES, H, W) when CAM, zero-filled
-    int height, int width, int n, int nr, int nc, int ln, int sign, int subtexel,
-    float threshold, float early_alpha, float tf_scale) {
+// The kernel's parameters, shared by its two launch-bound variants below
+#define VOLYM_REPLAY_PARAMS                                                                                         \
+    const float* __restrict__ feats,    /* (N_FEATURES, H, W) */                                                     \
+        const void* __restrict__ vol,   /* (n, nr, nc) uint8 if U8 else float; unread when STORED */                 \
+        const float* __restrict__ grad, /* (3, n, nr, nc) when SHADING and not STORED */                             \
+        const float* __restrict__ lut,  /* (ln, 4) */                                                                \
+        const float* __restrict__ dens, /* (n, SHADING ? 4 : 1, H, W) when STORED */                                 \
+        const float* __restrict__ fin,  /* (H, W, 4) the forward's image */                                          \
+        const float* __restrict__ gimg, /* (H, W, 4) its cotangent */                                                \
+        float* __restrict__ d_vol,      /* (n, nr, nc), zero-filled; d_imp when COLOR */                             \
+        float* __restrict__ d_grad,     /* (3, n, nr, nc) when SHADING, zero-filled */                               \
+        float* __restrict__ d_lut,      /* (ln, 4), zero-filled */                                                   \
+        float* __restrict__ dd,         /* (n, SHADING ? 4 : 1, H, W) when SMOOTH, written in each ray's range */    \
+        int* __restrict__ steps,        /* (2, H, W) when SMOOTH: first and last written step */                     \
+        float* __restrict__ d_feats,    /* (N_FEATURES, H, W) when CAM, zero-filled */                               \
+        const uint32_t* __restrict__ gate, /* (ceil(n / 32), H, W) packed gate bits, or NULL */                      \
+        const float* __restrict__ imp,  /* (n, nr, nc) importance when COLOR */                                      \
+        int height, int width, int n, int nr, int nc, int ln, int sign, int subtexel, float threshold,               \
+        float early_alpha, float tf_scale
+#define VOLYM_REPLAY_ARGS                                                                                           \
+    feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, dd, steps, d_feats, gate, imp, height, width, n,   \
+        nr, nc, ln, sign, subtexel, threshold, early_alpha, tf_scale
+
+// one block a 16x16 tile of rays: the LUT and a block copy of d_lut in shared
+// memory, a ray a thread, the copy flushed with one atomic a nonzero entry
+template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH, bool CAM, bool COLOR>
+__device__ __forceinline__ void replay_tile(VOLYM_REPLAY_PARAMS) {
     extern __shared__ float smem[];
     float* s_lut = smem;
     float* s_dlut = smem + ln * 4;
@@ -406,9 +465,9 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
         const size_t r = (size_t)y * width + x;
         const float4 fo = reinterpret_cast<const float4*>(fin)[r];
         const float4 go = reinterpret_cast<const float4*>(gimg)[r];
-        replay_ray<BILINEAR, U8, SHADING, STORED, SMOOTH, CAM>(
+        replay_ray<BILINEAR, U8, SHADING, STORED, SMOOTH, CAM, COLOR>(
             feats + r, vol, grad, s_lut, dens, fo, go, d_vol, d_grad, s_dlut, dd, steps, CAM ? d_feats + r : nullptr,
-            n_rays, r, n, nr, nc, ln, sign, subtexel, threshold, early_alpha, tf_scale);
+            gate, imp, n_rays, r, n, nr, nc, ln, sign, subtexel, threshold, early_alpha, tf_scale);
     }
     __syncthreads();
     for (int i = tid; i < ln * 4; i += nthreads) {
@@ -417,38 +476,74 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(
     }
 }
 
-template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH, bool CAM = false>
-void launch(const float* feats, const void* vol, const float* grad, const float* lut,
-            const float* dens, const float* fin, const float* gimg, float* d_vol, float* d_grad,
-            float* d_lut, float* dd, int* steps, float* d_feats, int height, int width, int n, int nr, int nc,
-            int ln, int sign, int subtexel, float threshold, float early_alpha, float tf_scale, cudaStream_t stream) {
+// The blocks of 256 threads an SM must hold on the routes without the
+// stencil, a bound on the registers: the gate (a pointer tested at every
+// step, on every route) cost them 7 to 10 registers, and with them a block
+// an SM (4 -> 3 unshaded at 64, 3 -> 2 shaded or with the camera chain at
+// 85); the bound keeps the occupancy they had without it (a spill of at
+// most 32 bytes).  0: no bound, the compiler's own choice, for the
+// smoothed routes and the bilinear shaded camera chain, which hold 100 to
+// 180 registers (a bound of one block made the compiler take more, and
+// cost the smoothed routes 70%).
+template <bool BILINEAR, bool SHADING, bool SMOOTH, bool CAM>
+constexpr int replay_min_blocks() {
+    return (SMOOTH || (CAM && BILINEAR && SHADING)) ? 0 : ((!SHADING && !CAM) ? 4 : 3);
+}
+
+template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH, bool CAM, bool COLOR>
+__global__ void __launch_bounds__(TILE_X * TILE_Y) slab_replay_kernel(VOLYM_REPLAY_PARAMS) {
+    replay_tile<BILINEAR, U8, SHADING, STORED, SMOOTH, CAM, COLOR>(VOLYM_REPLAY_ARGS);
+}
+
+template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH, bool CAM, bool COLOR, int MIN_BLOCKS>
+__global__ void __launch_bounds__(TILE_X * TILE_Y, MIN_BLOCKS) slab_replay_kernel_bounded(VOLYM_REPLAY_PARAMS) {
+    replay_tile<BILINEAR, U8, SHADING, STORED, SMOOTH, CAM, COLOR>(VOLYM_REPLAY_ARGS);
+}
+
+template <bool BILINEAR, bool U8, bool SHADING, bool STORED, bool SMOOTH, bool CAM, bool COLOR>
+void launch(VOLYM_REPLAY_PARAMS, cudaStream_t stream) {
     const dim3 block(TILE_X, TILE_Y);
     const dim3 grid((width + TILE_X - 1) / TILE_X, (height + TILE_Y - 1) / TILE_Y);
     const size_t smem = (size_t)ln * 8 * sizeof(float);
-    slab_replay_kernel<BILINEAR, U8, SHADING, STORED, SMOOTH, CAM><<<grid, block, smem, stream>>>(
-        feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, dd, steps, d_feats, height, width, n, nr,
-        nc, ln, sign, subtexel, threshold, early_alpha, tf_scale);
+    constexpr int MIN_BLOCKS = replay_min_blocks<BILINEAR, SHADING, SMOOTH, CAM>();
+    if constexpr (MIN_BLOCKS > 0) {
+        slab_replay_kernel_bounded<BILINEAR, U8, SHADING, STORED, SMOOTH, CAM, COLOR, MIN_BLOCKS>
+            <<<grid, block, smem, stream>>>(VOLYM_REPLAY_ARGS);
+    } else {
+        slab_replay_kernel<BILINEAR, U8, SHADING, STORED, SMOOTH, CAM, COLOR><<<grid, block, smem, stream>>>(
+            VOLYM_REPLAY_ARGS);
+    }
 }
+
+#undef VOLYM_REPLAY_ARGS
+#undef VOLYM_REPLAY_PARAMS
 
 }  // namespace
 
 // C entry for ctypes: launches on `stream` and returns cudaGetLastError().
 // `grad` may be NULL when stored or unshaded, `dens` unless stored,
-// `d_vol` and `d_grad` when smoothing (and `d_grad` unless shaded), `dd`
-// and `steps` unless smoothing, and `d_feats` unless `camera` (which takes
-// neither `u8` nor `stored`).
+// `d_vol` and `d_grad` when smoothing without coloring (and `d_grad` unless
+// shaded), `dd` and `steps` unless smoothing without coloring, `d_feats`
+// unless `camera` (which takes neither `u8` nor `stored`), `gate` without
+// look-ahead and `imp` unless `coloring` (which takes no `stored`; `d_vol`
+// then receives d_imp).  The arguments that came with the gate and coloring
+// follow `stream`, so that a build of an earlier source, whose entry ends
+// there, takes the same call.
 extern "C" int slab_replay_launch(const float* feats, const void* vol, const float* grad,
                                   const float* lut, const float* dens, const float* fin,
                                   const float* gimg, float* d_vol, float* d_grad, float* d_lut,
                                   float* dd, int* steps, float* d_feats, int height, int width, int n, int nr,
                                   int nc, int ln, int sign, int subtexel, int bilinear, int u8, int shading,
                                   int stored, int smooth, int camera, float threshold, float early_alpha,
-                                  float tf_scale, void* stream) {
+                                  float tf_scale, void* stream, const uint32_t* gate, const float* imp,
+                                  int coloring) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define VOLYM_LAUNCH_C(B, U, S, D, G, C)                                                               \
-    launch<B, U, S, D, G, C>(feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, dd, steps, d_feats, \
-                             height, width, n, nr, nc, ln, sign, subtexel, threshold, early_alpha, tf_scale, s)
-#define VOLYM_LAUNCH(B, U, S, D, G) VOLYM_LAUNCH_C(B, U, S, D, G, false)
+#define VOLYM_LAUNCH_C(B, U, S, D, G, C, K)                                                                        \
+    launch<B, U, S, D, G, C, K>(feats, vol, grad, lut, dens, fin, gimg, d_vol, d_grad, d_lut, dd, steps, d_feats, \
+                                gate, imp, height, width, n, nr, nc, ln, sign, subtexel, threshold, early_alpha,   \
+                                tf_scale, s)
+#define VOLYM_LAUNCH(B, U, S, D, G) VOLYM_LAUNCH_C(B, U, S, D, G, false, false)
+#define VOLYM_LAUNCH_K(B, U, S, G) VOLYM_LAUNCH_C(B, U, S, false, G, false, true)
 #define VOLYM_LAUNCH_G(B, U, S, D)        \
     if (smooth) {                         \
         VOLYM_LAUNCH(B, U, S, D, true);   \
@@ -456,22 +551,35 @@ extern "C" int slab_replay_launch(const float* feats, const void* vol, const flo
         VOLYM_LAUNCH(B, U, S, D, false);  \
     }
 #define VOLYM_LAUNCH_D(B, U, S)           \
-    if (stored) {                         \
+    if (coloring) {                       \
+        if (smooth) {                     \
+            VOLYM_LAUNCH_K(B, U, S, true);  \
+        } else {                          \
+            VOLYM_LAUNCH_K(B, U, S, false); \
+        }                                 \
+    } else if (stored) {                  \
         VOLYM_LAUNCH_G(B, U, S, true);    \
     } else {                              \
         VOLYM_LAUNCH_G(B, U, S, false);   \
     }
+#define VOLYM_LAUNCH_CAM(B, S, G)                                      \
+    if (coloring) {                                                    \
+        VOLYM_LAUNCH_C(B, false, S, false, G, true, true);             \
+    } else {                                                           \
+        VOLYM_LAUNCH_C(B, false, S, false, G, true, false);            \
+    }
+    if (coloring && stored) return (int)cudaErrorInvalidValue;
     if (camera) {
         if (u8 || stored) return (int)cudaErrorInvalidValue;
         switch ((bilinear ? 4 : 0) | (shading ? 2 : 0) | (smooth ? 1 : 0)) {
-            case 0: VOLYM_LAUNCH_C(false, false, false, false, false, true); break;
-            case 1: VOLYM_LAUNCH_C(false, false, false, false, true, true); break;
-            case 2: VOLYM_LAUNCH_C(false, false, true, false, false, true); break;
-            case 3: VOLYM_LAUNCH_C(false, false, true, false, true, true); break;
-            case 4: VOLYM_LAUNCH_C(true, false, false, false, false, true); break;
-            case 5: VOLYM_LAUNCH_C(true, false, false, false, true, true); break;
-            case 6: VOLYM_LAUNCH_C(true, false, true, false, false, true); break;
-            default: VOLYM_LAUNCH_C(true, false, true, false, true, true); break;
+            case 0: VOLYM_LAUNCH_CAM(false, false, false); break;
+            case 1: VOLYM_LAUNCH_CAM(false, false, true); break;
+            case 2: VOLYM_LAUNCH_CAM(false, true, false); break;
+            case 3: VOLYM_LAUNCH_CAM(false, true, true); break;
+            case 4: VOLYM_LAUNCH_CAM(true, false, false); break;
+            case 5: VOLYM_LAUNCH_CAM(true, false, true); break;
+            case 6: VOLYM_LAUNCH_CAM(true, true, false); break;
+            default: VOLYM_LAUNCH_CAM(true, true, true); break;
         }
         return (int)cudaGetLastError();
     }
@@ -486,8 +594,10 @@ extern "C" int slab_replay_launch(const float* feats, const void* vol, const flo
         case 6: VOLYM_LAUNCH_D(true, true, false); break;
         default: VOLYM_LAUNCH_D(true, true, true); break;
     }
+#undef VOLYM_LAUNCH_CAM
 #undef VOLYM_LAUNCH_D
 #undef VOLYM_LAUNCH_G
+#undef VOLYM_LAUNCH_K
 #undef VOLYM_LAUNCH
 #undef VOLYM_LAUNCH_C
     return (int)cudaGetLastError();

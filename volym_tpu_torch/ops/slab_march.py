@@ -1,11 +1,13 @@
 """The slab march on the GPU: the per-ray table, the CUDA kernel's wrapper,
 the production render and the differentiable render.
 
-Counterpart of :mod:`volym_tpu.ops.slab_kernel` (base, shading and
-Gaussian smoothing modes, forward with or without the importance
-look-ahead gate of :mod:`volym_tpu_torch.ops.lookahead`, and, through
-:class:`DiffMarch`, the backward with camera gradients, without
-look-ahead).
+Counterpart of :mod:`volym_tpu.ops.slab_kernel` in every mode: base,
+shading, Gaussian smoothing, importance coloring and first-hit, forward
+with or without the importance look-ahead gate of
+:mod:`volym_tpu_torch.ops.lookahead`, and, through :class:`DiffMarch`, the
+backward with camera gradients, the look-ahead gate and importance
+coloring's d_importance (first-hit is forward-only, as in the JAX
+package).
 The TPU kernel ``_march_kernel`` samples with hat-matrix products
 on the MXU over a grid of (ray chunk, slab block) pairs; the CUDA kernel
 (``csrc/slab_march.cu``) marches a tile of rays a block, one ray a thread,
@@ -114,29 +116,15 @@ def u8_active(params: RenderParams, planes: int, n: int) -> bool:
     )
 
 
-def check_supported(params: RenderParams) -> None:
-    """Raise for the render modes this package does not implement yet."""
-    missing = [
-        name
-        for name, on in (
-            ("importance coloring (use_importance_coloring)", params.use_importance_coloring),
-            ("first-hit (use_opacity=False)", not params.use_opacity),
-        )
-        if on
-    ]
-    if missing:
-        raise NotImplementedError(
-            "not ported to volym_tpu_torch yet: " + ", ".join(missing)
-        )
-
-
 @dataclass(frozen=True)
 class StagePlan:
     """The CUDA march's plan of a launch, (batch, block) tensors: whether
-    the block composites the batch (``visited``), its density and gradient
+    the block composites the batch (``visited``), its density and aux
     windows (``dens_box``/``grad_box``: (..., 4) int64 rows r0..r1, columns
-    c0..c1, inclusive; ``r0 > r1`` when nothing is read) and whether each
-    is staged in shared memory or read from global memory.  Blocks are
+    c0..c1, inclusive; ``r0 > r1`` when nothing is read; the aux window
+    holds the gradient field's channels when shaded and the importance
+    under coloring, both sampled at the step's own coordinates) and whether
+    each is staged in shared memory or read from global memory.  Blocks are
     numbered row-major over the image's tiles."""
 
     visited: torch.Tensor
@@ -260,9 +248,10 @@ def stage_plan(feats: torch.Tensor, vol_shape, u8: bool, params: RenderParams, s
                                   bilinear)
         dens_staged, dens_bytes = _staged(dens_box, batch, elem, 0, stage_bytes, can_stage)
         grad_staged = torch.zeros_like(dens_staged)
-        if params.use_shading:
+        aux_channels = 3 * params.use_shading + params.use_importance_coloring
+        if aux_channels:
             dens_any = dens_box[..., 0] <= dens_box[..., 1]
-            grad_staged, _ = _staged(grad_box, 3 * batch, 4, dens_bytes, stage_bytes, can_stage)
+            grad_staged, _ = _staged(grad_box, aux_channels * batch, 4, dens_bytes, stage_bytes, can_stage)
             grad_staged &= dens_staged | ~dens_any
         for k, v in (("visited", visited), ("dens_box", dens_box), ("grad_box", grad_box),
                      ("dens_staged", dens_staged), ("grad_staged", grad_staged)):
@@ -281,7 +270,7 @@ def _bind(lib: ctypes.CDLL):
         p = ctypes.c_void_p
         i = ctypes.c_int
         f = ctypes.c_float
-        fn.argtypes = [p] * 7 + [i] * 13 + [f, f, f, p]
+        fn.argtypes = [p] * 7 + [i] * 13 + [f, f, f, p] + [p, i]
         fn.restype = ctypes.c_int
     return fn
 
@@ -290,6 +279,21 @@ def _library():
     from volym_tpu_torch.ops import _build
 
     return _bind(_build.library("slab_march"))
+
+
+#: the march kernel's colour modes (csrc/slab_march.cu MODE_*): the TF
+#: lookup composited, the importance heat map composited, the TF lookup's
+#: first hit
+MODE_LUT, MODE_COLOR, MODE_FIRST_HIT = 0, 1, 2
+
+
+def march_mode(params: RenderParams) -> int:
+    """The march's colour mode: first-hit is on only without coloring
+    (``slab_kernel.py:1451``), so coloring with ``use_opacity=False`` still
+    composites."""
+    if params.use_importance_coloring:
+        return MODE_COLOR
+    return MODE_LUT if params.use_opacity else MODE_FIRST_HIT
 
 
 def march_cuda(
@@ -302,19 +306,23 @@ def march_cuda(
     u8: bool = False,
     emit_density: bool = False,
     gate: torch.Tensor | None = None,
+    imp_perm: torch.Tensor | None = None,
 ):
     """Launch the CUDA march kernel; same arguments and result as
     :func:`slab.march_slabs`, except that ``gate`` is the packed gate of
     :func:`lookahead.gate_cuda` (int32 (ceil(N/32), H, W), bit j % 32 of
     word j // 32 for march step j).  With ``emit_density`` the residual is
     zero-filled here (``torch.zeros``) and the kernel writes the steps it
-    samples."""
+    samples; coloring and first-hit take no residual (the training step
+    stores none under coloring, :func:`slab_replay.use_stored_density`, and
+    first-hit is forward-only)."""
     global LAUNCHES
     dev = feats.device
     if dev.type != "cuda":
         raise ValueError(f"march_cuda needs CUDA tensors, got {dev}")
-    if gate is not None and emit_density:
-        raise NotImplementedError("the stored-density residual with a look-ahead gate is not ported yet")
+    mode = march_mode(params)
+    if emit_density and mode != MODE_LUT:
+        raise ValueError("the stored-density residual is marched only with the TF lookup composited")
     shading = params.use_shading
     tensors = [("feats", feats), ("vol_perm", vol_perm), ("lut", lut)]
     if shading:
@@ -323,6 +331,10 @@ def march_cuda(
         tensors.append(("grad_perm", grad_perm))
     if gate is not None:
         tensors.append(("gate", gate))
+    if mode == MODE_COLOR:
+        if imp_perm is None:
+            raise ValueError("importance coloring needs the permuted importance grid")
+        tensors.append(("imp_perm", imp_perm))
     for name, t in tensors:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, feats on {dev}")
@@ -342,6 +354,8 @@ def march_cuda(
     if gate is not None and (gate.dtype != torch.int32 or gate.shape != (lookahead.gate_words(n), height, width)):
         raise ValueError(f"gate must be int32 ({lookahead.gate_words(n)}, {height}, {width}), got {gate.dtype} "
                          f"{tuple(gate.shape)}")
+    if mode == MODE_COLOR and (imp_perm.dtype != torch.float32 or imp_perm.shape != (n, nr, nc)):
+        raise ValueError(f"imp_perm must be float32 ({n}, {nr}, {nc}), got {imp_perm.dtype} {tuple(imp_perm.shape)}")
     smooth = params.use_gaussian_smoothing
     if smooth:
         slab_mod.check_smooth_planes(n)
@@ -363,6 +377,7 @@ def march_cuda(
             int(params.interpolation == Interpolation.TRILINEAR), int(u8), int(shading), int(emit_density),
             int(smooth), threshold, early_alpha, tf_scale,
             torch.cuda.current_stream(dev).cuda_stream,
+            imp_perm.data_ptr() if mode == MODE_COLOR else None, mode,
         )
     if rc != 0:
         raise RuntimeError(f"slab_march kernel launch failed with CUDA error {rc}")
@@ -370,13 +385,14 @@ def march_cuda(
     return (out, dens) if emit_density else out
 
 
-def march(feats, vol_perm, lut, sign, params, grad_perm=None, u8=False, emit_density=False, gate=None):
+def march(feats, vol_perm, lut, sign, params, grad_perm=None, u8=False, emit_density=False, gate=None,
+          imp_perm=None):
     """The slab march on the tensors' device: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (no fallback between them).
     ``gate`` is what :func:`lookahead.gate` returns on the same device."""
     if feats.device.type == "cpu":
-        return slab_mod.march_slabs(feats, vol_perm, lut, sign, params, grad_perm, u8, emit_density, gate)
-    return march_cuda(feats, vol_perm, lut, sign, params, grad_perm, u8, emit_density, gate)
+        return slab_mod.march_slabs(feats, vol_perm, lut, sign, params, grad_perm, u8, emit_density, gate, imp_perm)
+    return march_cuda(feats, vol_perm, lut, sign, params, grad_perm, u8, emit_density, gate, imp_perm)
 
 
 def _layout(scene, camera_matrices, params: RenderParams):
@@ -403,17 +419,27 @@ def _features(camera_matrices, device, height, width, planes, major, sign, n_pla
 
 
 def lookahead_active(params: RenderParams) -> bool:
-    """Whether a render gates its march on importance look-ahead."""
+    """Whether a render gates its march on importance look-ahead (coloring
+    replaces it)."""
     return bool(params.use_importance_rendering and not params.use_importance_coloring)
+
+
+def importance_perm(importance: torch.Tensor, major: int, planes: int) -> torch.Tensor:
+    """The (N, rows, cols) permuted importance grid, resampled nearest to
+    ``planes`` planes (``slab_kernel.py:2329-2338``): what coloring samples
+    and the look-ahead's levels are made of.  Differentiable in
+    ``importance`` (coloring's d_importance goes back through the gather
+    and the permute)."""
+    return slab_mod.slab_resample_nearest(slab_mod.permute_volume(importance, major), planes)
 
 
 def lookahead_inputs(scene, camera_matrices, params: RenderParams, height: int, width: int):
     """The gate's inputs besides the per-ray table: ``(cone_feats, levels)``,
     the (CONE_FEATURES, H, W) cone table (None for the straight variant)
-    and the uint8 importance levels of the permuted grid, resampled nearest
-    to the march's plane count (``slab_kernel.py:2329-2364``)."""
+    and the uint8 importance levels of :func:`importance_perm`
+    (``slab_kernel.py:2329-2364``)."""
     major, sign, planes, _ = _layout(scene, camera_matrices, params)
-    imp_perm = slab_mod.slab_resample_nearest(slab_mod.permute_volume(scene.importance, major), planes)
+    imp_perm = importance_perm(scene.importance, major, planes)
     cone_feats = None
     if params.use_cone_importance_check:
         origin, dirs = rays_mod.generate_rays(camera_matrices.to(scene.device), height, width)
@@ -443,7 +469,6 @@ def prepare(scene, camera_matrices, params: RenderParams, height: int, width: in
     cotangents are moot, so ``camera_grads`` does not veto the u8 stream
     (``slab_kernel.render`` clears it the same way).  The u8 stream reads
     :func:`u8_grid`."""
-    check_supported(params)
     major, sign, planes, u8 = _layout(scene, camera_matrices, params.replace(camera_grads=False))
     if u8:
         vol_perm = slab_mod.permute_volume(u8_grid(scene), major)
@@ -462,24 +487,28 @@ def render(
     importance look-ahead (:func:`lookahead_active`) the march is gated by
     ``gate_fn`` (default :func:`lookahead.gate`: the CUDA gate kernels on a
     GPU), whose gate ``march_fn`` takes; ``importance_check_ahead_steps``
-    has no effect here, as on the JAX package's slab paths."""
+    has no effect here, as on the JAX package's slab paths.  Importance
+    coloring samples :func:`importance_perm`; first-hit is
+    ``use_opacity=False`` without coloring."""
     feats, vol_perm, lut, sign, grad_perm, u8 = prepare(scene, camera_matrices, params, height, width)
     gate = None
     if lookahead_active(params):
         cone_feats, levels = lookahead_inputs(scene, camera_matrices, params, height, width)
         gate = gate_fn(feats, cone_feats, levels, sign, params.subtexel_bits)
-    return march_fn(feats, vol_perm, lut, sign, params, grad_perm, u8=u8, gate=gate)
+    imp_perm = None
+    if params.use_importance_coloring:
+        major, _, planes, _ = _layout(scene, camera_matrices, params)
+        imp_perm = importance_perm(scene.importance, major, planes).contiguous()
+    return march_fn(feats, vol_perm, lut, sign, params, grad_perm, u8=u8, gate=gate, imp_perm=imp_perm)
 
 
 def check_differentiable(params: RenderParams) -> None:
-    """Raise for the modes the differentiable render does not implement
-    yet: those of :func:`check_supported` and importance look-ahead."""
-    check_supported(params)
-    if lookahead_active(params):
+    """Raise for first-hit, which the differentiable render refuses as the
+    JAX package's does (``slab_kernel.py:2476-2480``)."""
+    if march_mode(params) == MODE_FIRST_HIT:
         raise NotImplementedError(
-            "not ported to volym_tpu_torch yet: importance look-ahead in the differentiable render "
-            "(its backward, the replay gated by the same look-ahead gate, is queued after the next slice of the "
-            "port, the kernel redesigns)"
+            "the slab render always alpha-composites when differentiated; first-hit (use_opacity=False) is "
+            "forward-only"
         )
 
 
@@ -510,7 +539,8 @@ def smooth_backward(
 
 class DiffMarch(torch.autograd.Function):
     """The differentiable slab march: the counterpart of the TPU package's
-    custom VJPs ``march_pallas`` and ``march_pallas_shaded``.
+    custom VJPs ``march_pallas``, ``march_pallas_shaded``,
+    ``march_pallas_lookahead`` and ``march_pallas_coloring``.
 
     Forward: the march (B1), which also stores the density residual when
     :func:`slab_replay.use_stored_density` holds.  Backward: the replay
@@ -527,20 +557,29 @@ class DiffMarch(torch.autograd.Function):
     ``scatter_fn`` and ``feats_grad_fn`` (:func:`march`,
     :func:`slab_replay.replay`, :func:`voxel_grad.smooth_scatter` and
     :func:`feats_grad.feats_grad` dispatch on the tensors' device).
+
+    ``gate``: the look-ahead gate, which both directions read and which
+    gets no cotangent (``_mpl_bwd``, ``slab_kernel.py:1798-1822``).
+    ``imp_perm``: importance coloring's permuted importance grid; the
+    replay scatters d ``imp_perm`` in every case, smoothed too, and d
+    ``vol_perm`` and d ``lut`` are zero (the density only gates the
+    threshold mask, ``_mpc_bwd``, ``:1893-1910``), so the volume's gradient
+    comes only through the gradient field when shaded.
     """
 
     @staticmethod
-    def forward(ctx, vol_perm, lut, grad_perm, feats, sign, params, u8, march_fn, replay_fn, scatter_fn,
-                feats_grad_fn):
+    def forward(ctx, vol_perm, lut, grad_perm, feats, imp_perm, gate, sign, params, u8, march_fn, replay_fn,
+                scatter_fn, feats_grad_fn):
         if u8:
             vol = quantize_u8(vol_perm).contiguous()
         else:
             vol = vol_perm.contiguous()
         lut = lut.contiguous()
         stored = slab_replay.use_stored_density(params, vol.shape[0], feats.shape[1] * feats.shape[2])
-        res = march_fn(feats, vol, lut, sign, params, grad_perm, u8, emit_density=stored)
+        res = march_fn(feats, vol, lut, sign, params, grad_perm, u8, emit_density=stored, gate=gate,
+                       imp_perm=imp_perm)
         out, dens = res if stored else (res, None)
-        ctx.save_for_backward(feats, vol, lut, grad_perm, out, dens)
+        ctx.save_for_backward(feats, vol, lut, grad_perm, out, dens, gate, imp_perm)
         ctx.sign, ctx.params, ctx.u8 = sign, params, u8
         ctx.replay_fn, ctx.scatter_fn, ctx.feats_grad_fn = replay_fn, scatter_fn, feats_grad_fn
         return out
@@ -548,13 +587,17 @@ class DiffMarch(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_img):
-        feats, vol, lut, grad_perm, out, dens = ctx.saved_tensors
+        feats, vol, lut, grad_perm, out, dens, gate, imp_perm = ctx.saved_tensors
         params = ctx.params
-        res = ctx.replay_fn(feats, vol, lut, ctx.sign, params, out, g_img.contiguous(), grad_perm, ctx.u8, dens)
-        d_feats = None
+        res = ctx.replay_fn(feats, vol, lut, ctx.sign, params, out, g_img.contiguous(), grad_perm, ctx.u8, dens,
+                            gate, imp_perm)
+        d_feats = d_imp = None
         if params.camera_grads:
             *res, d_feats = res
-        if params.use_gaussian_smoothing:
+        if params.use_importance_coloring:
+            d_imp, d_grad, d_lut = res
+            d_vol = torch.zeros(vol.shape, dtype=torch.float32, device=vol.device)
+        elif params.use_gaussian_smoothing:
             dd, steps, d_lut = res
             d_vol, d_grad, d_plain = smooth_backward(feats, dd, steps, vol, ctx.sign, params, ctx.scatter_fn,
                                                      ctx.feats_grad_fn)
@@ -564,12 +607,13 @@ class DiffMarch(torch.autograd.Function):
             d_vol, d_grad, d_lut = res
         if ctx.u8:
             d_vol = d_vol * 255.0  # d/d(scaled density) -> d/d(v/255 volume)
-        return d_vol, d_lut, d_grad, d_feats, None, None, None, None, None, None, None
+        return d_vol, d_lut, d_grad, d_feats, d_imp, None, None, None, None, None, None, None, None
 
 
 def render_diff(
     scene, camera_matrices, params: RenderParams, height: int, width: int, march_fn=march,
     replay_fn=slab_replay.replay, scatter_fn=voxel_grad.smooth_scatter, feats_grad_fn=feats_grad.feats_grad,
+    gate_fn=lookahead.gate,
 ):
     """Differentiable slab render -> (H, W, 4) on the scene's device, the
     counterpart of ``slab_kernel.render_diff``.  Gradients reach
@@ -588,12 +632,20 @@ def render_diff(
     chosen on the host).  Camera cotangents march the f32 volume and
     re-sample it in the replay (no u8 stream, no stored residual).
 
+    Importance look-ahead gates both directions with ``gate_fn`` (default
+    :func:`lookahead.gate`), built without autograd on detached inputs: a
+    zero-gradient mask, as the JAX package's ``stop_gradient`` calls make it
+    (``slab_kernel.py:2425-2447``).  Importance coloring keeps the permuted
+    importance grid in the graph, so d_importance reaches
+    ``scene.importance`` through the nearest gather and the permute
+    (``:2413-2422``); the direct volume and LUT gradients are zero.
+    First-hit raises ``NotImplementedError``, as in the JAX package.
+
     In the u8 domain (:func:`u8_active`) the uint8 grid is derived from the
     differentiable volume on every call, ``round(volume * 255)``, so a
     volume that is not u8-representable is quantised silently, as in the
     TPU package (and values outside [0, 1] are clamped to it);
-    ``scene.volume_u8`` is not read.  Coloring, look-ahead and first-hit
-    raise ``NotImplementedError``.
+    ``scene.volume_u8`` is not read.
     """
     check_differentiable(params)
     major, sign, planes, u8 = _layout(scene, camera_matrices, params)
@@ -601,6 +653,14 @@ def render_diff(
     grad_perm = _gradient_perm(scene.volume, major, planes) if params.use_shading else None
     with torch.set_grad_enabled(params.camera_grads and torch.is_grad_enabled()):
         feats = _features(camera_matrices, scene.device, height, width, planes, major, sign, vol_perm.shape[1])
+    gate = imp_perm = None
+    if lookahead_active(params):
+        with torch.no_grad():
+            cone_feats, levels = lookahead_inputs(scene, camera_matrices, params, height, width)
+            gate = gate_fn(feats.detach(), cone_feats, levels, sign, params.subtexel_bits)
+    if params.use_importance_coloring:
+        imp_perm = importance_perm(scene.importance, major, planes).contiguous()
     return DiffMarch.apply(
-        vol_perm, scene.tf_lut, grad_perm, feats, sign, params, u8, march_fn, replay_fn, scatter_fn, feats_grad_fn
+        vol_perm, scene.tf_lut, grad_perm, feats, imp_perm, gate, sign, params, u8, march_fn, replay_fn, scatter_fn,
+        feats_grad_fn,
     )

@@ -4,7 +4,9 @@ wrapper, the device dispatch and the stored-density gate.
 Counterpart of :mod:`volym_tpu.ops.slab_bwd_kernel` on the path the
 training step runs: the replay ``_replay_kernel`` with its fused voxel
 scatter, from the stored density or re-sampled, base and shading modes,
-and with its camera chain (d_feats) on the re-sampled f32 stream.  The
+with its camera chain (d_feats) on the re-sampled f32 stream, gated by the
+look-ahead gate, and in importance coloring (d_importance, fused in every
+case).  The
 TPU backward splits the replay from the
 scatter (passes 1 and 2) when its VMEM cannot hold the fused layout and
 under Gaussian smoothing; one thread per ray scatters with atomics and
@@ -26,6 +28,7 @@ import ctypes
 import torch
 
 from volym_tpu_torch.config import Interpolation, RenderParams
+from volym_tpu_torch.ops import lookahead
 from volym_tpu_torch.render import slab as slab_mod
 from volym_tpu_torch.render.slab import N_FEATURES
 
@@ -44,11 +47,14 @@ MAX_LUT_ENTRIES = 48 * 1024 // 32
 
 def use_stored_density(params: RenderParams, n: int, rays: int) -> bool:
     """Whether the forward stores the density residual for the replay
-    (``slab_kernel._use_stored_density``): never under camera cotangents,
-    and only while the residual, ``width x n x rays x 4`` bytes (width 4
-    when shaded: density and the three gradient-field samples), is within
-    :data:`STORE_DENSITY_BUDGET_MB`."""
-    if params.camera_grads:
+    (``slab_kernel._use_stored_density``): never under camera cotangents
+    or importance coloring, and only while the residual, ``width x n x rays
+    x 4`` bytes (width 4 when shaded: density and the three gradient-field
+    samples), is within :data:`STORE_DENSITY_BUDGET_MB`.  The JAX package
+    stores under coloring too; here the re-sampled replay, faster than the
+    stored one in every cell measured on the H100 (``PERF.md`` §5), spares
+    the kernels a coloring variant with the residual."""
+    if params.camera_grads or params.use_importance_coloring:
         return False
     width = 4 if params.use_shading else 1
     return width * int(n) * int(rays) * 4 <= STORE_DENSITY_BUDGET_MB * 1024 * 1024
@@ -67,7 +73,7 @@ def _bind(lib: ctypes.CDLL):
         p = ctypes.c_void_p
         i = ctypes.c_int
         f = ctypes.c_float
-        fn.argtypes = [p] * 13 + [i] * 14 + [f, f, f, p]
+        fn.argtypes = [p] * 13 + [i] * 14 + [f, f, f, p] + [p, p, i]
         fn.restype = ctypes.c_int
     return fn
 
@@ -89,10 +95,15 @@ def replay_cuda(
     grad_perm: torch.Tensor | None = None,
     u8: bool = False,
     dens: torch.Tensor | None = None,
+    gate: torch.Tensor | None = None,
+    imp_perm: torch.Tensor | None = None,
 ):
     """Launch the CUDA replay kernel; same arguments and result as
-    :func:`slab.replay_slabs` (``(dd, steps, d_lut)`` under Gaussian
-    smoothing, ``steps`` written by the kernel for every ray; with
+    :func:`slab.replay_slabs` (``gate`` packed as the march takes it,
+    :func:`lookahead.gate_cuda`; ``(dd, steps, d_lut)`` under Gaussian
+    smoothing without coloring, ``steps`` written by the kernel for every
+    ray; ``(d_imp, d_grad, d_lut)`` under coloring, which takes no ``dens``;
+    with
     ``params.camera_grads`` a last ``d_feats``, zero-filled here, which the
     kernel's camera mode accumulates one ray a thread, without atomics),
     with one difference: ``dd`` is allocated by :data:`ALLOC_DD`
@@ -111,9 +122,16 @@ def replay_cuda(
     shading = params.use_shading
     stored = dens is not None
     camera = params.camera_grads
+    coloring = params.use_importance_coloring
     if camera and (stored or u8):
         raise ValueError("camera cotangents need the re-sampled replay of the f32 volume (no residual, no u8)")
+    if coloring and (stored or imp_perm is None):
+        raise ValueError("importance coloring re-samples (no residual) and needs the permuted importance grid")
     tensors = [("feats", feats), ("vol_perm", vol_perm), ("lut", lut), ("out", out), ("g_img", g_img)]
+    if gate is not None:
+        tensors.append(("gate", gate))
+    if coloring:
+        tensors.append(("imp_perm", imp_perm))
     if stored:
         tensors.append(("dens", dens))
     elif shading:
@@ -143,13 +161,19 @@ def replay_cuda(
             raise ValueError(f"dens must be float32 {want}, got {dens.dtype} {tuple(dens.shape)}")
     elif shading and (grad_perm.dtype != torch.float32 or grad_perm.shape != (3, n, nr, nc)):
         raise ValueError(f"grad_perm must be float32 (3, {n}, {nr}, {nc})")
+    words = lookahead.gate_words(n)
+    if gate is not None and (gate.dtype != torch.int32 or gate.shape != (words, height, width)):
+        raise ValueError(f"gate must be int32 ({words}, {height}, {width}), got {gate.dtype} {tuple(gate.shape)}")
+    if coloring and (imp_perm.dtype != torch.float32 or imp_perm.shape != (n, nr, nc)):
+        raise ValueError(f"imp_perm must be float32 ({n}, {nr}, {nc}), got {imp_perm.dtype} {tuple(imp_perm.shape)}")
     smooth = params.use_gaussian_smoothing
     if smooth:
         slab_mod.check_smooth_planes(n)
     threshold, early_alpha, dscale = slab_mod.march_knobs(params, u8)
     tf_scale = float(ln) * (dscale if dscale else 1.0)
     d_vol = d_grad = dd = steps = None
-    if smooth:
+    unfused = smooth and not coloring
+    if unfused:
         dd = ALLOC_DD((n, 4, height, width) if shading else (n, height, width), dtype=torch.float32, device=dev)
         steps = torch.empty((2, height, width), dtype=torch.int32, device=dev)
     else:
@@ -170,18 +194,21 @@ def replay_cuda(
             height, width, n, nr, nc, ln, int(sign), int(params.subtexel_bits),
             int(params.interpolation == Interpolation.TRILINEAR), int(u8), int(shading), int(stored), int(smooth),
             int(camera), threshold, early_alpha, tf_scale,
-            torch.cuda.current_stream(dev).cuda_stream,
+            torch.cuda.current_stream(dev).cuda_stream, ptr(gate), ptr(imp_perm) if coloring else None, int(coloring),
         )
     if rc != 0:
         raise RuntimeError(f"slab_replay kernel launch failed with CUDA error {rc}")
     LAUNCHES += 1
-    res = (dd, steps, d_lut) if smooth else (d_vol, d_grad, d_lut)
+    res = (dd, steps, d_lut) if unfused else (d_vol, d_grad, d_lut)
     return (*res, d_feats) if camera else res
 
 
-def replay(feats, vol_perm, lut, sign, params, out, g_img, grad_perm=None, u8=False, dens=None):
+def replay(feats, vol_perm, lut, sign, params, out, g_img, grad_perm=None, u8=False, dens=None, gate=None,
+           imp_perm=None):
     """The replay backward on the tensors' device: the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors (no fallback between them)."""
+    tensors, the CUDA kernel for CUDA tensors (no fallback between them).
+    ``gate`` is what :func:`lookahead.gate` returns on the same device."""
     if feats.device.type == "cpu":
-        return slab_mod.replay_slabs(feats, vol_perm, lut, sign, params, out, g_img, grad_perm, u8, dens)
-    return replay_cuda(feats, vol_perm, lut, sign, params, out, g_img, grad_perm, u8, dens)
+        return slab_mod.replay_slabs(feats, vol_perm, lut, sign, params, out, g_img, grad_perm, u8, dens, gate,
+                                     imp_perm)
+    return replay_cuda(feats, vol_perm, lut, sign, params, out, g_img, grad_perm, u8, dens, gate, imp_perm)

@@ -1,9 +1,10 @@
-"""The cone look-ahead's sample directions (``wgsl:94-106``) and the
-Gaussian smoothing constants (``wgsl:52-56, 255``).
+"""The cone look-ahead's sample directions (``wgsl:94-106``), the
+importance heat map (``wgsl:83-92``) and the Gaussian smoothing constants
+(``wgsl:52-56, 255``).
 
-Counterpart of ``cone_directions`` and its constants in
-:mod:`volym_tpu.render.golden`; the rest of that module, the t-step golden
-renderer, is not ported yet.  Every expression is written in JAX's
+Counterpart of ``cone_directions``, ``importance_to_color`` and their
+constants in :mod:`volym_tpu.render.golden`; the rest of that module, the
+t-step golden renderer, is not ported yet.  Every expression is written in JAX's
 operation order (``jnp.cross``'s products, the norms summed in component
 order and rooted by :func:`~volym_tpu_torch.render.rays.sqrt_rn`), so the
 directions equal eager JAX's bit for bit.
@@ -25,6 +26,18 @@ GAUSSIAN_SIGMA = 1.5
 #: cone look-ahead constants (``wgsl:112-113``)
 CONE_SAMPLES = 8
 CONE_ANGLE = 0.2
+
+
+def importance_to_color(importance: torch.Tensor) -> torch.Tensor:
+    """Heat-map colouring of importance (``wgsl:83-92``): (...,) -> (..., 4)
+    rgba = (min(1.5 imp, 1), 1.2 (1 - imp), 0.2, imp).  The green channel
+    can exceed 1 (the image writer clamps on store, as the reference's
+    rgba8unorm target does)."""
+    return torch.stack(
+        [torch.clamp(importance * 1.5, max=1.0), (1.0 - importance) * 1.2, torch.full_like(importance, 0.2),
+         importance],
+        dim=-1,
+    )
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

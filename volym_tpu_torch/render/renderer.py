@@ -33,8 +33,9 @@ def make_renderer(
 
     ``backend``: "slab" = the plain PyTorch slab march, on any device;
     "slab_cuda" = the CUDA kernels, which need a CUDA device.
-    ``differentiable``: the frame carries gradients to ``scene.volume`` and
-    ``scene.tf_lut`` (set ``requires_grad`` on them) through the replay
+    ``differentiable``: the frame carries gradients to ``scene.volume``,
+    ``scene.tf_lut`` and, under coloring, ``scene.importance`` (set
+    ``requires_grad`` on them) through the replay
     backward, and with ``camera_grads`` (the default) to the camera
     matrices' ``inverse_view_proj`` and ``position`` (set ``requires_grad``
     on them) through the replay's camera chain.  Gaussian smoothing
@@ -42,18 +43,19 @@ def make_renderer(
     forward and backward, the latter through the replay, the stencil's
     transpose and the voxel-gradient scatters (one fused kernel with
     "slab_cuda") and, for camera gradients with trilinear sampling, the
-    plain rows' camera chain (the CUDA kernels with "slab_cuda").  Importance look-ahead (``use_importance_rendering``,
-    straight or ``use_cone_importance_check``) gates the forward render with
-    the look-ahead gate (the CUDA gate kernels with "slab_cuda").  Render
-    modes that are not ported (importance coloring, first-hit, and
-    look-ahead in the differentiable render) raise ``NotImplementedError``.
+    plain rows' camera chain (the CUDA kernels with "slab_cuda").
+    Importance look-ahead (``use_importance_rendering``, straight or
+    ``use_cone_importance_check``) gates the render, and its replay when
+    differentiable, with the look-ahead gate (the CUDA gate kernels with
+    "slab_cuda").  Importance coloring (``use_importance_coloring``)
+    colours by importance, and differentiable carries d_importance to
+    ``scene.importance``.  First-hit (``use_opacity=False``) renders but is
+    not differentiable: ``NotImplementedError``, as in the JAX package.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown renderer backend {backend!r}; choose from {BACKENDS}")
     if differentiable:
         slab_march.check_differentiable(params)
-    else:
-        slab_march.check_supported(params)
     device = torch.device(device)
     if backend == "slab_cuda":
         if device.type != "cuda":
@@ -72,7 +74,7 @@ def make_renderer(
         def render(camera_matrices) -> torch.Tensor:
             return slab_march.render_diff(
                 scene, camera_matrices, params, height, width, march_fn=march_fn, replay_fn=replay_fn,
-                scatter_fn=scatter_fn, feats_grad_fn=feats_grad_fn,
+                scatter_fn=scatter_fn, feats_grad_fn=feats_grad_fn, gate_fn=gate_fn,
             )
 
         return render

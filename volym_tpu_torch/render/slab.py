@@ -1,8 +1,10 @@
 """Slab-marching renderer: plain PyTorch version.
 
-Counterpart of :mod:`volym_tpu.render.slab` for the base, shading and
-Gaussian smoothing modes, forward (with importance look-ahead) and backward
-(with camera gradients, without look-ahead).  The march steps
+Counterpart of :mod:`volym_tpu.render.slab` in every slab mode: base,
+shading, Gaussian smoothing, importance coloring and first-hit, forward
+with importance look-ahead, and backward (with camera gradients, the
+look-ahead gate and coloring's d_importance; first-hit is forward-only).
+The march steps
 along the camera's dominant axis one voxel plane at a time, so every
 sample lies on a plane and trilinear filtering is bilinear inside one
 slice (see the JAX module for the derivation).
@@ -36,7 +38,9 @@ import numpy as np
 import torch
 
 from volym_tpu_torch.config import Interpolation, RenderParams
-from volym_tpu_torch.render.golden import CONE_SAMPLES, GAUSSIAN_KERNEL_SIZE, GAUSSIAN_SIGMA, GAUSSIAN_STEP
+from volym_tpu_torch.render.golden import (
+    CONE_SAMPLES, GAUSSIAN_KERNEL_SIZE, GAUSSIAN_SIGMA, GAUSSIAN_STEP, importance_to_color,
+)
 from volym_tpu_torch.render.rays import sqrt_rn
 from volym_tpu_torch.render.shading import AMBIENT, DIFFUSE, GRADIENT_OFFSET, SHININESS, SPECULAR, safe_normalize
 from volym_tpu_torch.transfer_function import lut_sample
@@ -697,6 +701,7 @@ def march_slabs(
     u8: bool = False,
     emit_density: bool = False,
     gate: torch.Tensor | None = None,
+    imp_perm: torch.Tensor | None = None,
 ):
     """Front-to-back slab march -> (H, W, 4) image.
 
@@ -711,23 +716,32 @@ def march_slabs(
     ``dens`` is (N, H, W) float32 in march order j, or (N, 4, H, W) when
     shaded.  Row 0 holds the sampled density (0..255 in the u8 domain) at
     every step the kernel samples (sign flag set, ``entry <= t < exit``,
-    alpha below the early-termination alpha before the step) and exactly
-    0.0 elsewhere; rows 1..3 hold the gradient-field sample where the
-    density also passes the threshold, and 0.0 elsewhere.  A step that was
-    not sampled then contributes exactly nothing to the replay.
+    alpha below the early-termination alpha before the step, gate bit
+    clear) and exactly 0.0 elsewhere; rows 1..3 hold the gradient-field
+    sample where the density also passes the threshold, and 0.0
+    elsewhere.  A step that was not sampled then contributes exactly
+    nothing to the replay.
 
     ``gate``: the (N, H, W) bool look-ahead gate (:func:`lookahead_gate`);
     a step whose bit is set adds nothing, as if its density were below the
-    threshold.  The residual with a gate belongs to the look-ahead's
-    backward, which is not ported yet.
+    threshold.
 
     With ``params.use_gaussian_smoothing`` the step's density is the
     smoothed one (:func:`smoothed_densities`): the threshold mask, the TF
     lookup and the residual's row 0 read it, while the gradient field is
     still sampled at the step's own coordinates.
+
+    ``params.use_importance_coloring`` takes the step's colour and opacity
+    from ``imp_perm``, the (N, rows, cols) float32 permuted importance grid,
+    sampled with the box tap at the step's snapped coordinates, through
+    :func:`golden.importance_to_color` (``slab_kernel.py:1182-1196``); the
+    LUT is not read and the density is only the threshold mask.  It
+    composes with shading and smoothing.  First-hit (``use_opacity``
+    False, unless coloring: ``slab_kernel.py:1451``) sets the colour of the
+    first step that passes the mask and alpha to ``max(acc_a, 1)``, which
+    retires the ray through the early-termination alpha
+    (``slab_kernel.py:1248-1256``).
     """
-    if gate is not None and emit_density:
-        raise NotImplementedError("the stored-density residual with a look-ahead gate is not ported yet")
     _, height, width = feats.shape
     f = feats.reshape(N_FEATURES, -1)
     n, nr, nc = vol_perm.shape
@@ -737,6 +751,10 @@ def march_slabs(
     shading = params.use_shading
     if shading and grad_perm is None:
         raise ValueError("shading needs the permuted gradient field")
+    coloring = params.use_importance_coloring
+    if coloring and imp_perm is None:
+        raise ValueError("importance coloring needs the permuted importance grid")
+    first_hit = not (params.use_opacity or coloring)
     smooth = (
         smoothed_densities(feats, vol_perm, sign, params).reshape(n, -1) if params.use_gaussian_smoothing else None
     )
@@ -755,11 +773,14 @@ def march_slabs(
         k, t, rows_c, cols_c = _step_coords(f, j, n, nr, nc, sign, bits)
         density = smooth[j] if smooth is not None else sample2d(vol_perm[k], rows_c, cols_c)
         live = sign_ok & (t >= entry) & (t < exit_) & (acc_a < early_alpha)
-        m = live & (density >= threshold)
         if gate is not None:
-            m = m & ~gate[j].reshape(-1)
+            live = live & ~gate[j].reshape(-1)
+        m = live & (density >= threshold)
 
-        rgba = lut_sample(lut, density, dscale)
+        if coloring:
+            rgba = importance_to_color(_nearest_slice(imp_perm[k], rows_c, cols_c))
+        else:
+            rgba = lut_sample(lut, density, dscale)
         rgb = rgba[:, :3]
         if shading:
             g = torch.stack([sample2d(grad_perm[c, k], rows_c, cols_c) for c in range(3)], dim=-1)
@@ -769,6 +790,11 @@ def march_slabs(
         if emit_density:
             dens[j, 0] = torch.where(live, density, 0.0)
 
+        if first_hit:
+            mf = m.float()
+            acc_c = acc_c * (1.0 - mf)[:, None] + rgb * mf[:, None]
+            acc_a = torch.maximum(acc_a, mf)
+            continue
         alpha = 1.0 - torch.exp(aexp * torch.log(torch.clamp(1.0 - rgba[:, 3], min=1e-37)))
         w = (1.0 - acc_a) * alpha * m.float()
         acc_c = acc_c + rgb * w[:, None]
@@ -793,6 +819,8 @@ def replay_slabs(
     grad_perm: torch.Tensor | None = None,
     u8: bool = False,
     dens: torch.Tensor | None = None,
+    gate: torch.Tensor | None = None,
+    imp_perm: torch.Tensor | None = None,
 ):
     """Replay backward of :func:`march_slabs` -> ``(d_vol, d_grad, d_lut)``.
 
@@ -806,7 +834,10 @@ def replay_slabs(
 
     ``dens``: the forward's residual (``march_slabs(..., emit_density=True)``);
     without it the volume (and the gradient field) is re-sampled.  Both
-    routes give the same bits.
+    routes give the same bits.  ``gate``: the forward's (N, H, W) bool
+    look-ahead gate; a step whose bit is set adds nothing in either
+    direction (``slab_bwd_kernel.py:633-637``), and the gate has no
+    cotangent.
 
     ``d_vol`` (N, rows, cols) is d/d(``vol_perm`` as marched): in the u8
     domain d/d(scaled density), which the caller multiplies by 255.
@@ -828,21 +859,34 @@ def replay_slabs(
     or that is lit when shaded), ``(N, -1)`` for a ray with none, so ``dd``
     is 0.0 outside them.  :func:`smooth_voxel_grad` takes it from there.
 
+    Under importance coloring (``imp_perm``, as in :func:`march_slabs`) the
+    colour comes from the box-sampled importance and the density is only
+    the threshold mask, so the result is ``(d_imp, d_grad, d_lut)`` in every
+    case, smoothed too (nothing is folded, ``slab_bwd_kernel.py:1684-1691``):
+    ``d_imp`` (N, rows, cols) takes each step's d_r * 1.5 * [1.5 imp < 1] -
+    1.2 d_g + d_a (``:704-711``) with the sample's box hat, ``d_grad`` the
+    gradient-field cotangent with its own hats when shaded, and ``d_lut``
+    stays 0.
+
     With ``params.camera_grads`` the result gains ``d_feats`` (N_FEATURES,
     H, W), the cotangent of the per-ray table (``_replay_step_body``
     ``:817-892``): F_RS/F_RB/F_CS/F_CB from the coordinate derivative of
-    the density sample (:func:`_dsample`; unsmoothed only) and, when
-    shaded, of the three gradient-field samples, with trilinear sampling
-    only (box hats have none); F_AEXP through the opacity correction;
-    F_HX..F_HZ through the half vector when shaded; F_TS, under smoothing
-    with trilinear sampling, through the stencil's tap offsets
-    (:func:`smooth_row_dts`).  Every other row is 0.  The rows/cols chain
-    of the smoothed density is :func:`feats_grad`'s, after the stencil's
-    transpose.  Camera cotangents need the volume: no residual.
+    the density sample (:func:`_dsample`; unsmoothed only, not under
+    coloring) and, when shaded, of the three gradient-field samples, with
+    trilinear sampling only (box hats have none); F_AEXP through the
+    opacity correction; F_HX..F_HZ through the half vector when shaded;
+    F_TS, under smoothing with trilinear sampling and without coloring,
+    through the stencil's tap offsets (:func:`smooth_row_dts`).  Every
+    other row is 0.  The rows/cols chain of the smoothed density is
+    :func:`feats_grad`'s, after the stencil's transpose.  Camera cotangents
+    need the volume: no residual.
     """
     camera = params.camera_grads
     if camera and dens is not None:
         raise ValueError("camera cotangents need the re-sampled replay: the stored residual has no coordinates")
+    coloring = params.use_importance_coloring
+    if coloring and imp_perm is None:
+        raise ValueError("importance coloring needs the permuted importance grid")
     f = feats.reshape(N_FEATURES, -1)
     n_rays = f.shape[1]
     n, nr, nc = vol_perm.shape
@@ -854,6 +898,7 @@ def replay_slabs(
     sample2d = _bilinear_slice if bilinear else _nearest_slice
     shading = params.use_shading
     smoothing = params.use_gaussian_smoothing
+    unfused = smoothing and not coloring  # the per-step cotangents belong to the smoothed density
     if shading and grad_perm is None and dens is None:
         raise ValueError("shading needs the permuted gradient field")
     if dens is not None:
@@ -862,7 +907,7 @@ def replay_slabs(
         rows = _stencil_rows(f, vol_perm, sign, params)
         jf_all = torch.arange(n, dtype=torch.float32, device=f.device)[:, None]
         smooth = smooth_row(f, jf_all, rows, n, nr, nc, bilinear)
-        dts = smooth_row_dts(f, jf_all, rows, n, nr, nc, bilinear) if camera and bilinear else None
+        dts = smooth_row_dts(f, jf_all, rows, n, nr, nc, bilinear) if camera and bilinear and unfused else None
         del rows
 
     sign_ok = f[F_SIGNOK] > 0.5
@@ -872,12 +917,12 @@ def replay_slabs(
     g = g_img.reshape(n_rays, 4)
     g_c, g_a = g[:, :3], g[:, 3]
     dev = f.device
-    if smoothing:
+    if unfused:
         dd_out = torch.zeros((n, 4 if shading else 1, n_rays), dtype=torch.float32, device=dev)
         first = torch.full((n_rays,), n, dtype=torch.int32, device=dev)
         last = torch.full((n_rays,), -1, dtype=torch.int32, device=dev)
     else:
-        d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dev)
+        d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dev)  # d_imp under coloring
         d_grad = torch.zeros((3, n, nr, nc), dtype=torch.float32, device=dev) if shading else None
     d_lut = torch.zeros((ln, 4), dtype=torch.float32, device=dev)
     d_feats = torch.zeros_like(f) if camera else None
@@ -893,16 +938,22 @@ def replay_slabs(
         else:
             density = smooth[j] if smoothing else sample2d(vol_perm[k], rows_c, cols_c)
         live = sign_ok & (t >= entry) & (t < exit_) & (acc_a < early_alpha)
+        if gate is not None:
+            live = live & ~gate[j].reshape(-1)
         mf = (live & (density >= threshold)).float()
 
-        # the TF lookup of lut_sample, keeping its texels and fraction
-        c_raw = density * tf_scale - 0.5
-        c = torch.clamp(c_raw, 0.0, ln - 1.0)
-        i0f = torch.floor(c)
-        fr = c - i0f
-        i0 = i0f.long()
-        i1 = torch.clamp(i0 + 1, max=ln - 1)
-        rgba = lut[i0] * (1.0 - fr)[:, None] + lut[i1] * fr[:, None]
+        if coloring:
+            imp = _nearest_slice(imp_perm[k], rows_c, cols_c)
+            rgba = importance_to_color(imp)
+        else:
+            # the TF lookup of lut_sample, keeping its texels and fraction
+            c_raw = density * tf_scale - 0.5
+            c = torch.clamp(c_raw, 0.0, ln - 1.0)
+            i0f = torch.floor(c)
+            fr = c - i0f
+            i0 = i0f.long()
+            i1 = torch.clamp(i0 + 1, max=ln - 1)
+            rgba = lut[i0] * (1.0 - fr)[:, None] + lut[i1] * fr[:, None]
         rgb = rgba[:, :3]
         if shading:
             if dens is not None:
@@ -941,7 +992,7 @@ def replay_slabs(
             d_g = inv_norm * (d_n - nrm * n_dot_dn) * nzf
             d_rgb = d_rgb * torch.where(nonzero, shade_f, 1.0)
             for ch in range(3):
-                if smoothing:
+                if unfused:
                     dd_out[j, 1 + ch] = d_g[:, ch]
                 else:
                     _scatter_sample(d_grad[ch, k], rows_c, cols_c, d_g[:, ch], bilinear)
@@ -949,26 +1000,31 @@ def replay_slabs(
                 d_feats[F_HX : F_HZ + 1] += (d_hdotn * nrm).t()
         d_rgba = torch.cat([d_rgb, d_a[:, None]], dim=-1)
 
-        d_lut.index_add_(0, i0, d_rgba * (1.0 - fr)[:, None])
-        d_lut.index_add_(0, i1, d_rgba * fr[:, None])
-        slope = torch.where((fr > 0.0)[:, None], lut[i1] - lut[i0], 0.0)
-        dd = (d_rgba * slope).sum(-1) * tf_scale
-        tf_in = (fr > 0.0) & (c_raw > 0.0) & (c_raw < ln - 1.0)
-        dd = dd * tf_in.float()
-        if smoothing:
-            dd_out[j, 0] = dd
-            written = (mf > 0.0) & (tf_in | nonzero[:, 0]) if shading else (mf > 0.0) & tf_in
-            first = torch.where(written & (first == n), j, first)
-            last = torch.where(written, j, last)
+        if coloring:
+            # rgba = (min(1.5 imp, 1), 1.2 (1 - imp), 0.2, imp)
+            dd = d_rgba[:, 0] * torch.where(imp * 1.5 < 1.0, 1.5, 0.0) - d_rgba[:, 1] * 1.2 + d_rgba[:, 3]
+            _scatter_sample(d_vol[k], rows_c, cols_c, dd, False)
         else:
-            _scatter_sample(d_vol[k], rows_c, cols_c, dd, bilinear)
+            d_lut.index_add_(0, i0, d_rgba * (1.0 - fr)[:, None])
+            d_lut.index_add_(0, i1, d_rgba * fr[:, None])
+            slope = torch.where((fr > 0.0)[:, None], lut[i1] - lut[i0], 0.0)
+            dd = (d_rgba * slope).sum(-1) * tf_scale
+            tf_in = (fr > 0.0) & (c_raw > 0.0) & (c_raw < ln - 1.0)
+            dd = dd * tf_in.float()
+            if unfused:
+                dd_out[j, 0] = dd
+                written = (mf > 0.0) & (tf_in | nonzero[:, 0]) if shading else (mf > 0.0) & tf_in
+                first = torch.where(written & (first == n), j, first)
+                last = torch.where(written, j, last)
+            else:
+                _scatter_sample(d_vol[k], rows_c, cols_c, dd, bilinear)
         if not camera:
             continue
         d_feats[F_AEXP] += d_alpha * log1ma * (alpha - 1.0)
         if coord_chain:
             d_rows = torch.zeros_like(dd)
             d_cols = torch.zeros_like(dd)
-            if not smoothing:
+            if not (smoothing or coloring):
                 d_rows, d_cols = _coord_chain(vol_perm[k], rows_c, cols_c, masks, dd)
             if shading:
                 for ch in range(3):
@@ -976,11 +1032,11 @@ def replay_slabs(
                     d_rows = d_rows + g_rows
                     d_cols = d_cols + g_cols
             _add_coord_chain(d_feats, j, d_rows, d_cols)
-            if smoothing:
+            if unfused:
                 d_feats[F_TS] += dd * dts[j]
     height, width = out.shape[:2]
     extra = (d_feats.reshape(N_FEATURES, height, width),) if camera else ()
-    if smoothing:
+    if unfused:
         dd_out = dd_out.reshape(n, 4, height, width) if shading else dd_out.reshape(n, height, width)
         return dd_out, torch.stack([first, last]).reshape(2, height, width), d_lut, *extra
     return d_vol, d_grad, d_lut, *extra
@@ -1027,11 +1083,12 @@ def render_diff(scene, camera_matrices, params: RenderParams, height: int, width
     """Plain differentiable slab render -> (H, W, 4) on the scene's device:
     :func:`march_slabs` forward and :func:`replay_slabs` backward (with
     :func:`smooth_voxel_grad` and, for camera gradients, :func:`feats_grad`
-    under smoothing), the counterpart of the jnp ``slab.render_diff`` (see
+    under smoothing; gated by :func:`lookahead_gate` under look-ahead), the
+    counterpart of the jnp ``slab.render_diff`` (see
     :func:`volym_tpu_torch.ops.slab_march.render_diff`)."""
     from volym_tpu_torch.ops import slab_march
 
     return slab_march.render_diff(
         scene, camera_matrices, params, height, width, march_fn=march_slabs, replay_fn=replay_slabs,
-        scatter_fn=smooth_voxel_grad, feats_grad_fn=feats_grad,
+        scatter_fn=smooth_voxel_grad, feats_grad_fn=feats_grad, gate_fn=lookahead_gate,
     )
