@@ -161,7 +161,28 @@ Phases, in order; any failure ends the run with a nonzero exit:
    stream (u8_volume=False, as fitting requires); the loss must fall;
 8. write four screenshots through the CLI with its default flags
    (Gaussian smoothing on), the others with ``--importance --cone --scene
-   teapot``, ``--coloring --scene teapot`` and ``--first-hit``.
+   teapot``, ``--coloring --scene teapot`` and ``--first-hit``;
+9. the t-step renderers (``make_renderer(..., backend="ray")``: ``fast``
+   to serve, ``diff`` to train; PyTorch ops, which must launch none of the
+   kernels above), :func:`tstep_path`: (a) the 256^3 bonsai at 1024x768
+   with ``RenderParams()`` (what ``python -m volym_tpu screenshot``
+   renders), 3 orbit frames timed by CUDA events with their peak memory,
+   frame 0 bit for bit with ``golden.render``, the steps ``fast`` ran
+   against its bound and ``resolved_max_steps()``, one frame profiled
+   (device busy and idle shares, kernel launches); the 256^3 teapot at
+   1024x768 with ``BENCHMARK_PARAMS`` as Base, Importance and
+   ImportanceCone, one frame each, bit for bit with the golden, with the
+   share of pixels that differ from Base; (b) the same scenes and params
+   at 96x64 on the card and on the CPU, held by ``parity.check_close``;
+   (c) 3 training steps of ``sum(render)`` in ``bench.py``'s config on the
+   f32 volume at 256x256, gradients for the volume, the LUT and the camera
+   matrices, step 0's held to autograd through ``golden.render`` (adaptive
+   off) at 96x64 by ``tests/test_diff.py``'s rule, the step and autograd
+   through the golden at 256x256 timed with their peak memory, and one
+   coloring step (d_importance) on the teapot; (d) the march-length
+   histogram (``debug_vis.step_count_histogram``) of the (a) frame; and
+   ``screenshot --renderer ray``.  One JSON line, ``{"tstep": ...}``,
+   with the phase's wall time.
 
 In phases 3-6 each case and cell where B1 runs also prints how its
 (block, batch) pairs split between the staged route and the direct one,
@@ -205,6 +226,15 @@ GAUSS_TRAIN_STEPS = 3
 CAM_STEPS = 3
 MODE_STEPS = 3
 DESCENT_STEPS = 20
+#: the t-step phase's orbit frames and training steps
+TSTEP_FRAMES = 3
+TSTEP_TRAIN_STEPS = 3
+#: the share of gradient entries that may take the other side of a
+#: knife-edge mask between the t-step replay and autograd through the golden
+#: (three times the 14 of 16.8M d_volume entries seen on an H100 80GB HBM3),
+#: and how far off such an entry may be, in the scale (twice the 0.051 seen)
+TSTEP_KNIFE_EDGE_SHARE = 2.5e-6
+TSTEP_KNIFE_EDGE_ERR = 0.1
 ORBITS = [(30.0, 20.0), (210.0, 20.0), (120.0, 10.0), (300.0, -10.0), (20.0, 70.0), (20.0, -70.0)]
 KERNELS = {
     "slab_march": ("volym_tpu_torch/ops/csrc/slab_march.cu", "volym_tpu/ops/slab_kernel.py:91"),
@@ -571,6 +601,229 @@ def device_profile(fn, reps, top=6):
         device_launches=sum(e.count for e in rows) / reps,
         top={e.key[:60]: e.self_device_time_total / 1e3 / reps for e in rows[:top]},
     )
+
+
+def tstep_path(dev, bonsai, teapot, full_hw=(FULL_H, FULL_W), check_hw=(SMALL_H, SMALL_W), train_side=256):
+    """Phase 9: the t-step renderers (``make_renderer(..., backend="ray")``:
+    ``fast`` to serve, ``diff`` to train), PyTorch ops with no kernel of
+    their own, on ``dev`` (the card; the CPU, at small sizes, to rehearse
+    it).  Raises on any disagreement; -> the ``tstep`` record."""
+    import numpy as np
+    import torch
+
+    from volym_tpu_torch import BENCHMARK_PARAMS, Camera, RenderParams, Scene, cli, parity
+    from volym_tpu_torch.render import debug_vis, diff, fast, golden
+    from volym_tpu_torch.render.renderer import make_renderer
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    fh, fw = full_hw
+    rec = {}
+
+    def run(fn):
+        """(result, ms by CUDA events, memory in GB:
+        ``torch.cuda.max_memory_allocated()`` over the call and what was
+        allocated before it) of one call; on the CPU (a rehearsal) no time
+        and no memory are measured."""
+        if not cuda:
+            return fn(), None, None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev) / 1e9
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end), dict(peak=torch.cuda.max_memory_allocated(dev) / 1e9, before=before)
+
+    # (a) serving at full width: the 256^3 bonsai with RenderParams() (what
+    # `python -m volym_tpu screenshot` renders with no flags), 3 orbit frames
+    p = RenderParams()
+    render = make_renderer(bonsai, p, fh, fw, backend="ray", device=dev)
+    cam = Camera(aspect=fw / fh)
+    frames = []
+    for _ in range(TSTEP_FRAMES):
+        cam = cam.orbit(2.0, 0.0, 0.0)
+        cm = cam.matrices(device=dev)
+        img, ms, gb = run(lambda: render(cm))
+        if not (tuple(img.shape) == (fh, fw, 4) and bool(torch.isfinite(img).all())):
+            raise AssertionError(f"t-step frame: shape {tuple(img.shape)} or not finite")
+        frames.append(dict(ms=ms, memory_gb=gb))
+    cm0 = Camera(aspect=fw / fh).orbit(2.0, 0.0, 0.0).matrices(device=dev)
+    frame0 = render(cm0)
+    want, golden_ms, golden_gb = run(lambda: golden.render(bonsai, cm0, p, fh, fw))
+    if not torch.equal(frame0, want):
+        raise AssertionError("t-step frame 0: fast differs from golden")
+    stats = {}
+    fast.render(bonsai, cm0, p, fh, fw, stats=stats)
+    serve = dict(frames=frames, golden_ms=golden_ms, golden_memory_gb=golden_gb, fast_equals_golden=True,
+                 steps=stats["steps"], step_bound=stats["step_bound"], resolved_max_steps=p.resolved_max_steps(),
+                 lit=float((frame0[..., :3].amax(-1) > 0.01).float().mean()))
+    if cuda:
+        prof = device_profile(lambda: fast.render(bonsai, cm0, p, fh, fw), 1)
+        serve.update(profile=dict(wall_ms=prof["wall_ms"], device_busy_ms=prof["device_busy_ms"],
+                                  idle_share=prof["idle_share"], device_launches=prof["device_launches"],
+                                  top=prof["top"]))
+    log(f"t-step serving bonsai {fh}x{fw}: {json.dumps(serve)}")
+    rec["serving_bonsai"] = serve
+
+    # the teapot stand-in with the reference sweep's preset (step .02) as
+    # Base, Importance and ImportanceCone: one frame each
+    la = {"base": BENCHMARK_PARAMS, "importance": BENCHMARK_PARAMS.replace(use_importance_rendering=True),
+          "importance_cone": BENCHMARK_PARAMS.replace(use_importance_rendering=True,
+                                                      use_cone_importance_check=True)}
+    cmt = Camera(aspect=fw / fh).orbit(30.0, 20.0, 0.0).matrices(device=dev)
+    base_img = None
+    for name, lp in la.items():
+        img, ms, gb = run(lambda: make_renderer(teapot, lp, fh, fw, backend="ray", device=dev)(cmt))
+        want, g_ms, g_gb = run(lambda: golden.render(teapot, cmt, lp, fh, fw))
+        if not torch.equal(img, want):
+            raise AssertionError(f"t-step teapot {name}: fast differs from golden")
+        base_img = img if base_img is None else base_img
+        differ = float((img != base_img).any(-1).float().mean())
+        if name != "base" and not differ > 0:
+            raise AssertionError(f"t-step teapot {name}: the look-ahead did not engage")
+        row = dict(ms=ms, memory_gb=gb, golden_ms=g_ms, golden_memory_gb=g_gb, differ_from_base=differ)
+        log(f"t-step serving teapot {name} {fh}x{fw}: {json.dumps(row)}")
+        rec[f"serving_teapot_{name}"] = row
+
+    # (b) the card against the CPU at a small size, by the repo's rule
+    ch, cw = check_hw
+    cpu = torch.device("cpu")
+    agree = {}
+    for name, scene, cp, cam_ in [("bonsai default", bonsai, p, Camera(aspect=cw / ch).orbit(2.0, 0.0, 0.0))] + [
+            (f"teapot {n}", teapot, lp, Camera(aspect=cw / ch).orbit(30.0, 20.0, 0.0)) for n, lp in la.items()]:
+        on_dev = fast.render(scene, cam_.matrices(device=dev), cp, ch, cw).cpu()
+        on_cpu = fast.render(scene.to(cpu), cam_.matrices(device=cpu), cp, ch, cw)
+        r = parity.check_close(on_cpu, on_dev, f"t-step {name} card vs CPU")
+        agree[name] = dict(max_abs_err=r.max_abs_err, bulk_err=r.bulk_err, edge_frac=r.edge_frac,
+                           entries_differ=int((on_cpu != on_dev).sum()), entries=on_cpu.numel())
+    log(f"t-step card vs CPU at {ch}x{cw}: {json.dumps(agree)}")
+    rec["card_vs_cpu"] = agree
+
+    # (c) training: bench.py's config (trilinear, threshold .15, step .005,
+    # unshaded, unsmoothed) on the f32 volume, sum(render) through the
+    # replay backward, gradients for the volume, the LUT and the camera
+    train_p = RenderParams(interpolation="trilinear", density_threshold=0.15, raymarching_step_size=0.005,
+                           use_shading=False, use_gaussian_smoothing=False)
+
+    def leaves(scene, coloring=False):
+        return Scene(scene.volume.clone().requires_grad_(not coloring),
+                     scene.importance.clone().requires_grad_(coloring), scene.tf_lut.clone().requires_grad_(True))
+
+    def camera_leaves(h, w):
+        cm = Camera(aspect=w / h, distance=1.0).orbit(30.0, 20.0, 0.0).matrices(device=dev)
+        cm.inverse_view_proj.requires_grad_(True)
+        cm.position.requires_grad_(True)
+        return cm
+
+    def grads(s, cm):
+        return {"volume": s.volume.grad, "importance": s.importance.grad, "tf_lut": s.tf_lut.grad,
+                "inverse_view_proj": cm.inverse_view_proj.grad, "position": cm.position.grad}
+
+    s = leaves(bonsai)
+    train = make_renderer(s, train_p, train_side, train_side, backend="ray", device=dev, differentiable=True)
+    steps = []
+    for _ in range(TSTEP_TRAIN_STEPS):
+        cm = camera_leaves(train_side, train_side)
+        for leaf in (s.volume, s.tf_lut):
+            leaf.grad = None
+
+        def step():
+            img = train(cm)
+            img.sum().backward()
+            return img
+
+        img, ms, gb = run(step)
+        g = grads(s, cm)
+        # below a step of .01 the opacity correction's derivative at alpha 1
+        # is infinite: a composited sample at the LUT's opaque end gives
+        # those entries a non-finite gradient, as in the JAX package
+        opaque = torch.from_numpy(parity.opaque_entries(s.tf_lut.detach())).to(dev)
+        g_lut = g["tf_lut"]
+        bad = [k for k in ("volume", "inverse_view_proj", "position") if not bool(torch.isfinite(g[k]).all())]
+        bad += ["tf_lut"] * (not bool(torch.isfinite(g_lut[~opaque]).all()))
+        if bad or not float(g["volume"].abs().max()) > 0 or not float(g["position"].abs().max()) > 0:
+            raise AssertionError(f"t-step training: gradients not finite ({bad}) or zero")
+        steps.append(dict(ms=ms, memory_gb=gb, lut_opaque_end_not_finite=int((~torch.isfinite(g_lut[opaque])).sum())))
+    cm = camera_leaves(train_side, train_side)
+    sg = leaves(bonsai)
+    gp = train_p.replace(adaptive_stepping=False)
+    _, autograd_ms, autograd_gb = run(lambda: golden.render(sg, cm, gp, train_side, train_side).sum().backward())
+    # step 0's gradients against autograd through the golden at a small size,
+    # by tests/test_diff.py's rule (3e-3 of the scale, rtol 2e-2) with the
+    # repo's knife-edge accounting: the golden advances t step by step and
+    # the replay takes entry + k step, so an ulp apart a sample on the
+    # threshold can take the other side of the mask, and the voxels it
+    # touches differ by O(the scale); at most TSTEP_KNIFE_EDGE_SHARE of the
+    # entries may, each by at most TSTEP_KNIFE_EDGE_ERR of the scale
+    # (BASELINE.md: 8 voxels at 64^3)
+    held = {}
+    res, imgs = [], []
+    for fn in (diff.render, golden.render):
+        sc, cmc = leaves(bonsai), camera_leaves(ch, cw)
+        img = fn(sc, cmc, gp, ch, cw)
+        img.sum().backward()
+        res.append(grads(sc, cmc))
+        imgs.append(img.detach())
+    pixel_err = (imgs[0] - imgs[1]).abs().amax(-1)
+    held["image"] = dict(max_abs_err=float(pixel_err.max()), pixels_off_by_1e_3=int((pixel_err > 1e-3).sum()))
+    if held["image"]["pixels_off_by_1e_3"]:
+        raise AssertionError(f"t-step step 0 image: replay vs golden {held['image']}")
+    for k in ("volume", "tf_lut", "inverse_view_proj", "position"):
+        a, b = res[1][k].cpu().numpy(), res[0][k].cpu().numpy()
+        # the LUT's opaque end apart (its derivative can be infinite, and
+        # the golden's is NaN where a frozen ray sits on it: C11)
+        keep = ~parity.opaque_entries(bonsai.tf_lut) if k == "tf_lut" else np.ones(a.shape, bool)
+        a, b = a[keep], b[keep]
+        if not (np.isfinite(a).all() and np.isfinite(b).all()):
+            raise AssertionError(f"t-step step 0 d {k}: not finite (golden {np.isfinite(a).all()})")
+        scale = max(float(np.abs(a).max()), 1e-6)
+        off = np.abs(b - a) > 3e-3 * scale + 2e-2 * np.abs(a)
+        err_off = float(np.abs(a - b)[off].max()) if off.any() else 0.0
+        if off.sum() > TSTEP_KNIFE_EDGE_SHARE * a.size or err_off > TSTEP_KNIFE_EDGE_ERR * scale:
+            raise AssertionError(f"t-step step 0 d {k}: {int(off.sum())} of {a.size} entries off the rule, "
+                                 f"by up to {err_off:.3e} (scale {scale:.3e})")
+        held[k] = dict(scale=scale, entries=int(a.size), knife_edge=int(off.sum()), max_abs_err_off=err_off,
+                       max_abs_err_on=float(np.abs(a - b)[~off].max()))
+    # one coloring step on the teapot (RenderParams()'s defaults, step .01:
+    # the lobster's importance is 1, alpha 1, and below a step of .01 the
+    # opacity correction's derivative there is infinite): d_importance
+    sc = leaves(teapot, coloring=True)
+    cp = RenderParams(use_importance_coloring=True)
+    color = make_renderer(sc, cp, train_side, train_side, backend="ray", device=dev, differentiable=True)
+    cm = camera_leaves(train_side, train_side)
+    _, color_ms, color_gb = run(lambda: color(cm).sum().backward())
+    d_imp = sc.importance.grad
+    if not (bool(torch.isfinite(d_imp).all()) and float(d_imp.abs().max()) > 0):
+        raise AssertionError(f"t-step coloring step: d_importance not finite or zero ({float(d_imp.abs().max())})")
+    training = dict(size=f"{train_side}x{train_side}", steps=steps, autograd_golden_ms=autograd_ms,
+                    autograd_golden_memory_gb=autograd_gb, step0_vs_autograd_golden=held,
+                    coloring_step=dict(ms=color_ms, memory_gb=color_gb))
+    log(f"t-step training: {json.dumps(training)}")
+    rec["training"] = training
+
+    # (d) the march-length histogram of the (a) frame
+    edges, counts = debug_vis.step_count_histogram(bonsai, cm0, p, fh, fw)
+    rec["step_count_histogram"] = dict(edges=edges.tolist(), counts=counts.tolist())
+    if int(counts.sum()) != fh * fw:
+        raise AssertionError("t-step histogram: not every ray counted")
+
+    # the CLI: screenshot --renderer ray renders through fast
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "ray.png"
+        argv = ["screenshot", "--renderer", "ray", "--output", str(out)]
+        if not cuda:
+            argv += ["--device", "cpu", "--side", str(bonsai.volume.shape[0]), "--width", str(fw),
+                     "--height", str(fh)]
+        rc = cli.main(argv)
+        data = out.read_bytes() if out.exists() else b""
+        if rc != 0 or data[:8] != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError(f"CLI screenshot --renderer ray failed (rc {rc}, {len(data)} bytes)")
+        rec["cli_png_bytes"] = len(data)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    return rec
 
 
 class NoTranspose:
@@ -2280,6 +2533,18 @@ def main(argv=None) -> int:
             out.unlink()
             log(f"cli: screenshot {' '.join(flags)} (smoothing on) wrote a {len(data)}-byte PNG; "
                 f"(march, straight, cone) launches {launched}")
+
+    # phase 9: the t-step renderers (backend "ray"), PyTorch ops: they must
+    # launch none of the kernels above
+    def all_counts():
+        return (slab_march.LAUNCHES, slab_replay.LAUNCHES, lookahead.STRAIGHT_LAUNCHES, lookahead.CONE_LAUNCHES,
+                voxel_grad.LAUNCHES, feats_grad.LAUNCHES)
+
+    before = all_counts()
+    tstep = tstep_path(dev, scene, teapot)
+    if all_counts() != before:
+        raise AssertionError(f"the t-step path launched kernels: {before} -> {all_counts()}")
+    log(json.dumps({"tstep": tstep}))
 
     # B2 in every route and cell: ms, each --parent checkout's ms on the
     # same inputs (with the zero-fill its wrapper did; under smoothing also

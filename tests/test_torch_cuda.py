@@ -875,3 +875,79 @@ def test_new_modes_differentiable_renderer_counts_launches(scene3, device, mode)
         assert got[3] is None
         parity.check_close(want[1], got[1], "d_volume")
         parity.check_lut_grad(want[2], got[2], scene3.tf_lut, "d_lut")
+
+
+# ----------------------------------------------------------------------
+# The t-step renderers (backend "ray"): PyTorch ops, no kernel of their own
+# ----------------------------------------------------------------------
+
+TSTEP_MODES = {
+    "base": dict(use_gaussian_smoothing=False),
+    "first_hit": dict(use_gaussian_smoothing=False, use_opacity=False),
+    "trilinear_gaussian": dict(interpolation="trilinear"),
+    "straight": dict(use_gaussian_smoothing=False, use_importance_rendering=True, importance_check_ahead_steps=4),
+    "cone": dict(use_gaussian_smoothing=False, use_importance_rendering=True, use_cone_importance_check=True,
+                 importance_check_ahead_steps=4),
+    "coloring": dict(use_gaussian_smoothing=False, use_importance_coloring=True),
+}
+
+
+@pytest.fixture(scope="module")
+def teapot16():
+    return Scene.synthetic("teapot", side=16)
+
+
+@pytest.mark.parametrize("mode", list(TSTEP_MODES))
+def test_ray_backend_on_the_card_matches_cpu(teapot16, device, mode):
+    """``make_renderer(backend="ray")`` on the card against the same frame
+    on the CPU, by the repo's rule; on the card ``fast`` equals ``golden``
+    bit for bit."""
+    from volym_tpu_torch.render import golden
+
+    p = RenderParams(raymarching_step_size=0.05, **TSTEP_MODES[mode])
+    cam = Camera(distance=1.1).orbit(30.0, 20.0, 0.0).matrices()
+    got = make_renderer(teapot16, p, 24, 32, backend="ray", device=device)(cam)
+    assert got.device.type == "cuda"
+    assert torch.equal(got, golden.render(teapot16.to(device), cam.to(device), p, 24, 32))
+    want = make_renderer(teapot16, p, 24, 32, backend="ray", device="cpu")(cam)
+    assert float(want[..., :3].max()) > 0.1
+    parity.check_close(want, got.cpu(), mode)
+
+
+@pytest.mark.parametrize("mode", ["base", "trilinear_gaussian", "straight", "coloring"])
+def test_ray_backend_gradients_on_the_card_match_cpu(teapot16, device, mode):
+    """``diff.render`` on the card against the CPU: the image and the
+    volume, importance, LUT and camera gradients (the scatters add in no
+    fixed order on the card: held to the rule, not to bit equality)."""
+    p = RenderParams(raymarching_step_size=0.05, adaptive_stepping=False,
+                     **{**TSTEP_MODES[mode], "interpolation": "trilinear"})
+
+    def step(dev):
+        s = Scene(teapot16.volume.clone(), teapot16.importance.clone(), teapot16.tf_lut.clone()).to(dev)
+        for leaf in (s.volume, s.importance, s.tf_lut):
+            leaf.requires_grad_(True)
+        cam = Camera(distance=1.1).orbit(30.0, 20.0, 0.0).matrices(device=dev)
+        cam.inverse_view_proj.requires_grad_(True)
+        cam.position.requires_grad_(True)
+        img = make_renderer(s, p, 24, 32, backend="ray", device=dev, differentiable=True)(cam)
+        (img * torch.linspace(0.5, 1.5, img.numel(), device=dev).reshape(img.shape)).sum().backward()
+        return [img.detach().cpu()] + [t.grad.cpu() for t in (s.volume, s.importance, s.tf_lut,
+                                                                cam.inverse_view_proj, cam.position)]
+
+    want, got = step("cpu"), step(device)
+    for name, a, b in zip(("image", "volume", "importance", "tf_lut", "inverse_view_proj", "position"), want, got):
+        assert bool(torch.isfinite(b).all()), name
+        if a.abs().max() > 0:
+            parity.check_close(a, b, f"{mode} {name}")
+        else:
+            assert not bool(b.any()), name
+
+
+def test_ray_backend_without_cuda_raises(monkeypatch):
+    """``backend="ray"`` on a CUDA device raises where CUDA is missing: no
+    silent fall back to the CPU (runs everywhere, CUDA patched away)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_renderer(Scene.synthetic("sphere", side=8), RenderParams(), 8, 8, backend="ray", device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_renderer(Scene.synthetic("sphere", side=8), RenderParams(), 8, 8, backend="ray")

@@ -56,7 +56,8 @@ def test_port_never_imports_jax():
         "volym_tpu_torch.parity, volym_tpu_torch.io, volym_tpu_torch.ops.slab_march, volym_tpu_torch.ops.slab_replay, "
         "volym_tpu_torch.ops.lookahead, volym_tpu_torch.ops.voxel_grad, volym_tpu_torch.ops._build, "
         "volym_tpu_torch.render.renderer, "
-        "volym_tpu_torch.render.golden\n"
+        "volym_tpu_torch.render.golden, volym_tpu_torch.render.fast, volym_tpu_torch.render.diff, "
+        "volym_tpu_torch.render.debug_vis, volym_tpu_torch.ops.interp\n"
         "volym_tpu_torch.cli.build_parser().parse_args(['screenshot'])\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "print('ok')"
@@ -178,7 +179,50 @@ def test_slab_cuda_without_cuda_raises():
         with pytest.raises(RuntimeError, match="CUDA"):
             make_renderer(scene, BASE, 8, 8, backend="slab_cuda", device="cuda")
     with pytest.raises(ValueError, match="unknown renderer backend"):
-        make_renderer(scene, BASE, 8, 8, backend="ray", device="cpu")
+        make_renderer(scene, BASE, 8, 8, backend="slab_pallas", device="cpu")
+
+
+def test_ray_backend_renders_on_cpu():
+    """``make_renderer(backend="ray", device="cpu")``: the early-exit
+    ``fast`` frame, equal to the golden's, and the differentiable
+    ``diff`` frame with gradients for the volume, the LUT and the camera."""
+    from volym_tpu_torch.render import diff, golden
+
+    scene = Scene.synthetic("sphere", side=16)
+    p = BASE.replace(raymarching_step_size=0.05, interpolation="trilinear")
+    cm = Camera().orbit(20.0, 10.0, 0.0).matrices()
+    img = make_renderer(scene, p, 8, 8, backend="ray", device="cpu")(cm)
+    assert img.device.type == "cpu" and tuple(img.shape) == (8, 8, 4)
+    assert torch.equal(img, golden.render(scene, cm, p, 8, 8))
+    assert float(img[..., :3].max()) > 0.1
+    vol, lut = scene.volume.clone().requires_grad_(True), scene.tf_lut.clone().requires_grad_(True)
+    cm.inverse_view_proj.requires_grad_(True)
+    render = make_renderer(Scene(vol, scene.importance, lut), p, 8, 8, backend="ray", device="cpu",
+                           differentiable=True)
+    out = render(cm)
+    torch.testing.assert_close(out, diff.render(scene, cm, p, 8, 8), rtol=0, atol=0)
+    out.sum().backward()
+    for leaf in (vol, lut, cm.inverse_view_proj):
+        assert bool(torch.isfinite(leaf.grad).all()) and float(leaf.grad.abs().max()) > 0
+    with pytest.raises(NotImplementedError, match="first-hit"):
+        make_renderer(scene, p.replace(use_opacity=False), 8, 8, backend="ray", device="cpu", differentiable=True)
+
+
+def test_cli_screenshot_ray_writes_the_fast_frame(tmp_path):
+    """``screenshot --renderer ray --device cpu`` renders through ``fast``
+    with the CLI's parameters (the flags of the JAX package's default
+    renderer)."""
+    from volym_tpu_torch.render import fast
+
+    out = tmp_path / "ray.png"
+    argv = ["screenshot", "--renderer", "ray", "--device", "cpu", "--side", "16", "--width", "12", "--height", "8",
+            "--step-size", "0.05", "--importance", "--cone", "--ahead-steps", "4", "--scene", "teapot",
+            "--output", str(out)]
+    assert cli.main(argv) == 0
+    args = cli.build_parser().parse_args(argv)
+    want = fast.render(cli._default_scene(args), cli._camera(args).matrices(), cli._params(args), 8, 12)
+    np.testing.assert_array_equal(read_png(out), vio.to_uint8_image(want.numpy()))
+    assert read_png(out)[..., :3].max() > 0
 
 
 def _inputs(params, side=8, h=6, w=5):

@@ -1,12 +1,20 @@
 """volym_tpu_torch — the PyTorch + CUDA port of volym_tpu for NVIDIA Hopper.
 
 A second package beside :mod:`volym_tpu`, with the same module names.  It
-imports torch and numpy, never jax.  It renders with the slab march in its
-base and Blinn-Phong shading modes, with or without Gaussian smoothing and
-importance look-ahead (straight or cone), and differentiates the render
-without look-ahead for the volume, the TF LUT and the camera, with
-hand-written CUDA kernels (``ops/csrc/*.cu``) and their plain PyTorch
-versions.
+imports torch and numpy, never jax.  Two families of renderers:
+
+- the slab march (``make_renderer`` backends ``slab_cuda``, the default,
+  with hand-written CUDA kernels in ``ops/csrc/*.cu``, and ``slab``, their
+  plain PyTorch versions): base and Blinn-Phong shading, Gaussian
+  smoothing, importance look-ahead (straight or cone), importance coloring
+  and first-hit.  It differentiates the render for the volume, the TF LUT,
+  the camera and, under coloring, the importance, with and without
+  look-ahead; only first-hit refuses (``NotImplementedError``, as in the
+  JAX package);
+- the t-step march (backend ``ray``: ``render/golden.py``, the early-exit
+  ``render/fast.py`` and the replay-backward ``render/diff.py``, with
+  ``render/debug_vis.py``'s views), in PyTorch ops on any device, in the
+  same modes plus adaptive stepping.
 """
 
 from volym_tpu_torch.camera import Camera, CameraMatrices, camera_matrices

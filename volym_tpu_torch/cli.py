@@ -6,7 +6,9 @@
 The flags are those of ``python -m volym_tpu``, plus ``--device``.  The
 default renderer is the CUDA march kernel (``--renderer slab_cuda`` on
 ``--device cuda``); ``--renderer slab`` runs the plain PyTorch march on any
-device.  ``--importance`` gates the march on importance look-ahead along
+device; ``--renderer ray`` runs the t-step march of the JAX package's
+default renderer (:mod:`volym_tpu_torch.render.fast`) in PyTorch ops on
+any device.  ``--importance`` gates the march on importance look-ahead along
 the ray, ``--importance --cone`` along 8 cone directions (the CUDA gate
 kernels with ``slab_cuda``); ``--scene teapot`` is the segmented stand-in
 whose lobster is important.  ``--gaussian`` (Gaussian-smoothed density
@@ -168,8 +170,9 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--ahead-steps", type=int, default=12)
         p.add_argument("--interpolation", default="nearest", choices=["nearest", "trilinear"])
         p.add_argument(
-            "--renderer", default="slab_cuda", choices=["slab", "slab_cuda"],
-            help="slab_cuda = the CUDA march kernel; slab = the plain PyTorch march",
+            "--renderer", default="slab_cuda", choices=["slab", "slab_cuda", "ray"],
+            help="slab_cuda = the CUDA march kernel; slab = the plain PyTorch march; "
+            "ray = the t-step march (early exit) in PyTorch ops",
         )
         p.add_argument("--device", default="cuda", help="torch device to render on")
         p.add_argument("--frames", type=int, default=100)

@@ -38,6 +38,14 @@ def unproject_ndc(camera_matrices, ndc: torch.Tensor) -> torch.Tensor:
     return world[:, :3] / world[:, 3:4]
 
 
+def f32_const(value, device) -> torch.Tensor:
+    """The float32 tensor of ``value`` (a number or a tuple) on ``device``:
+    a constant of the t-step march.  A divisor must be one, on the device
+    of what it divides (a Python scalar divides through a reciprocal on
+    CUDA)."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded square root of a float32 tensor, on every
     device.  ``torch.sqrt`` on float32 CPU tensors runs a vectorised kernel

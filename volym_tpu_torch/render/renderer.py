@@ -1,8 +1,8 @@
 """Top-level renderer factory.
 
-Counterpart of :mod:`volym_tpu.render.renderer` for the slab backends:
-wire a scene and parameters into a callable that renders frames for
-successive cameras.
+Counterpart of :mod:`volym_tpu.render.renderer`: wire a scene and
+parameters into a callable that renders frames for successive cameras,
+through the slab backends or the t-step ``ray`` backend.
 """
 
 from __future__ import annotations
@@ -13,10 +13,10 @@ import torch
 
 from volym_tpu_torch.config import RenderParams
 from volym_tpu_torch.ops import feats_grad, lookahead, slab_march, slab_replay, voxel_grad
-from volym_tpu_torch.render import slab
+from volym_tpu_torch.render import diff, fast, slab
 from volym_tpu_torch.scene import Scene
 
-BACKENDS = ("slab", "slab_cuda")
+BACKENDS = ("slab", "slab_cuda", "ray")
 
 
 def make_renderer(
@@ -32,7 +32,14 @@ def make_renderer(
     ``device``.
 
     ``backend``: "slab" = the plain PyTorch slab march, on any device;
-    "slab_cuda" = the CUDA kernels, which need a CUDA device.
+    "slab_cuda" = the CUDA kernels, which need a CUDA device; "ray" = the
+    t-step march of the JAX package's default renderer, in PyTorch ops on
+    ``device`` (the early-exit :func:`fast.render` to serve,
+    :func:`diff.render` when differentiable: fixed steps and the replay
+    backward, with camera gradients through the samples under trilinear
+    sampling; it reads ``adaptive_stepping``, ``max_steps`` and
+    ``importance_check_ahead_steps``, and ignores ``subtexel_bits``,
+    ``camera_grads`` and ``u8_volume``).
     ``differentiable``: the frame carries gradients to ``scene.volume``,
     ``scene.tf_lut`` and, under coloring, ``scene.importance`` (set
     ``requires_grad`` on them) through the replay
@@ -57,6 +64,17 @@ def make_renderer(
     if differentiable:
         slab_march.check_differentiable(params)
     device = torch.device(device)
+    if backend == "ray":
+        # no fallback: a CUDA device without CUDA raises
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("backend 'ray' on a CUDA device needs CUDA, and torch.cuda.is_available() is False")
+        scene = scene.to(device)
+        march = diff.render if differentiable else fast.render
+
+        def render(camera_matrices) -> torch.Tensor:
+            return march(scene, camera_matrices.to(device), params, height, width)
+
+        return render
     if backend == "slab_cuda":
         if device.type != "cuda":
             raise RuntimeError(f"backend 'slab_cuda' renders on a CUDA device, got {device}")
