@@ -182,7 +182,27 @@ Phases, in order; any failure ends the run with a nonzero exit:
    coloring step (d_importance) on the teapot; (d) the march-length
    histogram (``debug_vis.step_count_histogram``) of the (a) frame; and
    ``screenshot --renderer ray``.  One JSON line, ``{"tstep": ...}``,
-   with the phase's wall time.
+   with the phase's wall time;
+10. the CLI's other subcommands and the harness, :func:`cli_path`: (a)
+   ``benchmark`` with its defaults (the 256^3 bonsai at 1024x768,
+   ``slab_cuda``) at step .005, 1 trial of 0.25 s a row: 7 rows (Base,
+   Importance and ImportanceCone at 3 look-aheads) in the JAX package's CSV
+   schema, rays/s above 0, B1 launched at least once a counted frame in
+   every row, B6 only in the Importance rows and B7 only in the
+   ImportanceCone rows (the launch counts start at 0 before the sweep, a
+   main path, and are read after it), each row's frame ms and rays/s
+   printed; (b) ``benchmark --profile DIR`` at step .02, whose
+   ``torch.profiler`` trace must name ``slab_march_kernel``; (c) the
+   harness's two clocks on ``bench.py``'s forward frame at 1024x768:
+   ``marginal_time``, ``device_frame_ms`` (above 0, at most 1.5 times the
+   marginal time) and the device's idle share; (d) ``fit_scene`` on the
+   256^3 bonsai at 256x256 rays with the CLI ``fit``'s parameters, 3 steps
+   timed by CUDA events, its peak memory over what was allocated before,
+   the loss finite and falling; (e) the CLI ``fit`` on the 32^3 sphere at
+   64x64, 10 steps at threshold .05: the loss falls and its ``.npz`` reads
+   back with a (32, 32, 32) volume and the LUT's shape; (f) ``run
+   --renderer ray --live-sweep``, 3 frames at 96x64, writes a PNG.  One JSON
+   line, ``{"cli": ...}``, with the phase's wall time.
 
 In phases 3-6 each case and cell where B1 runs also prints how its
 (block, batch) pairs split between the staged route and the direct one,
@@ -226,6 +246,8 @@ GAUSS_TRAIN_STEPS = 3
 CAM_STEPS = 3
 MODE_STEPS = 3
 DESCENT_STEPS = 20
+#: fit_scene's steps in the CLI phase
+FIT_STEPS = 3
 #: the t-step phase's orbit frames and training steps
 TSTEP_FRAMES = 3
 TSTEP_TRAIN_STEPS = 3
@@ -824,6 +846,225 @@ def tstep_path(dev, bonsai, teapot, full_hw=(FULL_H, FULL_W), check_hw=(SMALL_H,
         rec["cli_png_bytes"] = len(data)
     rec["wall_s"] = time.perf_counter() - t_phase
     return rec
+
+
+class LogRecords:
+    """Inside it, each message the CLI logs (logger ``volym_tpu_torch``) is
+    kept with the launch counts of B1, B6 and B7 when it was logged: a sweep
+    logs a line as each row starts, so the counts between two lines are one
+    row's."""
+
+    def __init__(self):
+        import logging
+
+        self.logger = logging.getLogger("volym_tpu_torch")
+        self.records = []
+        self.handler = logging.Handler(logging.INFO)
+        self.handler.emit = lambda record: self.records.append((record.getMessage(), launch_counts()))
+
+    def __enter__(self):
+        import logging
+
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self.records
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def bench_forward():
+    """``bench.py``'s forward frame: trilinear, u8, threshold .15, step .005
+    (256 planes at 256^3), unshaded, unsmoothed."""
+    from volym_tpu_torch import RenderParams
+
+    return RenderParams(interpolation="trilinear", density_threshold=0.15, raymarching_step_size=0.005,
+                        use_shading=False, use_gaussian_smoothing=False, u8_volume=True)
+
+
+def launch_counts() -> tuple[int, int, int]:
+    """The launch counts of B1, B6 and B7."""
+    from volym_tpu_torch.ops import lookahead, slab_march
+
+    return slab_march.LAUNCHES, lookahead.STRAIGHT_LAUNCHES, lookahead.CONE_LAUNCHES
+
+
+def cli_path(dev, bonsai, full_hw=(FULL_H, FULL_W), fit_side=256, cli_side=FULL_SIDE):
+    """Phase 10: the CLI's ``benchmark``, ``fit`` and ``run --live-sweep``,
+    the harness's two clocks and ``fit_scene``, on ``dev`` (the card; the
+    CPU, at small sizes and through the plain march, to rehearse it, where
+    no launch is counted, no time or memory is measured and the profiler
+    trace is not searched).  Raises on any failure; -> (the ``cli`` record,
+    the sweep's launches of B1, B6 and B7)."""
+    import csv
+    import math
+    import os
+    import re
+
+    import torch
+
+    from volym_tpu_torch import Camera, Scene, cli
+    from volym_tpu_torch import io as vio
+    from volym_tpu_torch.bench import harness
+    from volym_tpu_torch.ops import lookahead, slab_march
+    from volym_tpu_torch.optim import fit_scene
+    from volym_tpu_torch.render import golden
+    from volym_tpu_torch.render.renderer import make_renderer
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    fh, fw = full_hw
+    where = [] if cuda else ["--device", "cpu", "--renderer", "slab", "--side", str(cli_side), "--width", str(fw),
+                             "--height", str(fh)]
+    rec = {}
+
+    def run_cli(argv):
+        with LogRecords() as records:
+            rc = cli.main(argv)
+        if rc != 0:
+            raise AssertionError(f"CLI {argv}: rc {rc}")
+        return records
+
+    def read_rows(path):
+        with open(path, newline="") as f:
+            reader = csv.DictReader(f)
+            if reader.fieldnames != harness.CSV_FIELDS + ["rays_per_s"]:
+                raise AssertionError(f"sweep CSV: columns {reader.fieldnames}")
+            return list(reader)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the sweep through the CLI at step .005: Base, Importance and
+        # ImportanceCone at 3 look-aheads each, 1 trial of 0.25 s a row.  The
+        # counts start at 0 here and are read when it ends: its main path
+        out = Path(tmp) / "sweep.csv"
+        slab_march.LAUNCHES = lookahead.STRAIGHT_LAUNCHES = lookahead.CONE_LAUNCHES = 0
+        records = run_cli(["benchmark", "--trials", "1", "--seconds", "0.25", "--sweep-steps", "0.005",
+                           "--output", str(out), *where])
+        sweep_launches = launch_counts()
+        rows = read_rows(out)
+        starts = [c for msg, c in records if msg.startswith("benchmark ")]
+        if len(rows) != 7 or len(starts) != 7:
+            raise AssertionError(f"sweep: {len(rows)} rows, {len(starts)} started")
+        sweep = []
+        for row, c0, c1 in zip(rows, starts, starts[1:] + [sweep_launches]):
+            b1, b6, b7 = (b - a for a, b in zip(c0, c1))
+            frames = float(row["avg_total_frames"])
+            kind = row["algorithm"]
+            if not float(row["rays_per_s"]) > 0:
+                raise AssertionError(f"sweep {kind}: rays/s {row['rays_per_s']}")
+            # B1 in every row, B6 only in the Importance rows, B7 only in the
+            # ImportanceCone rows, each at least once a counted frame
+            gated = (True, kind == "Importance", kind == "ImportanceCone")
+            if cuda and not all(n >= frames if on else n == 0 for n, on in zip((b1, b6, b7), gated)):
+                raise AssertionError(f"sweep {kind} ahead {row['importance_steps']}: {frames} frames, "
+                                     f"B1/B6/B7 launches {(b1, b6, b7)}")
+            sweep.append(dict(algorithm=kind, step=float(row["step_size"]), ahead=int(row["importance_steps"]),
+                              frame_ms=float(row["avg_frame_time_ms"]),
+                              frame_ms_std=float(row["std_dev_frame_time_ms"]), frames=frames,
+                              rays_per_s=float(row["rays_per_s"]), launches=dict(B1=b1, B6=b6, B7=b7)))
+            log(f"cli sweep {fh}x{fw}: {json.dumps(sweep[-1])}")
+        rec["sweep"] = sweep
+
+        # (b) the sweep at step .02 under --profile: the trace names B1
+        prof_dir = Path(tmp) / "profile"
+        run_cli(["benchmark", "--trials", "1", "--seconds", "0.1", "--sweep-steps", "0.02", "--output",
+                 str(Path(tmp) / "profiled.csv"), "--profile", str(prof_dir), *where])
+        trace = (prof_dir / "trace.json").read_bytes()
+        if cuda and b"slab_march_kernel" not in trace:
+            raise AssertionError("benchmark --profile: the trace does not name slab_march_kernel")
+        rec["profile"] = dict(trace_mb=len(trace) / 1e6, names_slab_march_kernel=b"slab_march_kernel" in trace)
+        log(f"cli benchmark --profile: {json.dumps(rec['profile'])}")
+        del trace
+
+    # (c) the harness's two clocks on bench.py's forward frame
+    render = make_renderer(bonsai, bench_forward(), fh, fw, backend="slab_cuda" if cuda else "slab", device=dev)
+    cm = Camera(aspect=fw / fh).orbit(2.0, 0.0, 0.0).matrices()
+    marginal_ms = harness.marginal_time(lambda: render(cm)) * 1e3
+    if cuda:
+        device_ms = harness.device_frame_ms(lambda: render(cm))
+        if not 0 < device_ms <= 1.5 * marginal_ms:
+            raise AssertionError(f"bench frame: device {device_ms} ms against marginal {marginal_ms} ms")
+    else:
+        device_ms = None
+        try:
+            harness.device_frame_ms(lambda: render(cm))
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("device_frame_ms did not raise on the CPU")
+    rec["bench_frame"] = dict(marginal_ms=marginal_ms, device_frame_ms=device_ms,
+                              idle_share=None if device_ms is None else 1.0 - device_ms / marginal_ms)
+    log(f"bench frame {fh}x{fw}, two clocks: {json.dumps(rec['bench_frame'])}")
+
+    # (d) fit_scene at full width: the bonsai, fit_side^2 rays, the CLI fit's
+    # parameters, FIT_STEPS steps, each timed by CUDA events
+    fit_p = cli._params(cli.build_parser().parse_args(["fit"])).replace(
+        adaptive_stepping=False, camera_grads=False, u8_volume=False)
+    cm = Camera().matrices(device=dev)
+    target = golden.render(bonsai, cm, fit_p, fit_side, fit_side)
+    init = Scene(torch.full_like(bonsai.volume, max(0.15, fit_p.density_threshold + 0.03)), bonsai.importance,
+                 bonsai.tf_lut)
+    events = []
+
+    def mark(*_):
+        if cuda:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+
+    before = None
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+    mark()
+    res = fit_scene(init, cm, target, fit_p, steps=FIT_STEPS, callback=mark)
+    losses = res.losses
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"fit_scene: the loss did not fall ({losses})")
+    fit = dict(size=f"{fit_side}x{fit_side}", side=int(bonsai.volume.shape[0]), losses=losses)
+    if cuda:
+        torch.cuda.synchronize()
+        fit.update(step_ms=[a.elapsed_time(b) for a, b in zip(events, events[1:])],
+                   peak_memory_gb=(torch.cuda.max_memory_allocated(dev) - before) / 1e9)
+    rec["fit_scene"] = fit
+    log(f"fit_scene: {json.dumps(fit)}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (e) fit through the CLI at a small size: the sphere at 32^3, 64x64,
+        # 10 steps, threshold .05, unsmoothed
+        npz = Path(tmp) / "fitted.npz"
+        records = run_cli(["fit", "--scene", "sphere", "--side", "32", "--width", "64", "--height", "64", "--frames",
+                           "10", "--threshold", "0.05", "--no-gaussian", "--output", str(npz),
+                           *(["--device", "cpu"] if not cuda else [])])
+        (first, last), = [tuple(map(float, m.groups())) for msg, _ in records
+                          if (m := re.fullmatch(r"loss: (\S+) -> (\S+)", msg))]
+        ckpt = vio.load_checkpoint(npz)
+        lut_shape = tuple(Scene.synthetic("sphere", side=8).tf_lut.shape)
+        if not (math.isfinite(last) and last < first and ckpt["volume"].shape == (32, 32, 32)
+                and ckpt["tf_lut"].shape == lut_shape):
+            raise AssertionError(f"CLI fit: loss {first} -> {last}, checkpoint "
+                                 f"{ {k: v.shape for k, v in ckpt.items()} }")
+        rec["cli_fit"] = dict(loss_first=first, loss_last=last, volume=list(ckpt["volume"].shape),
+                              tf_lut=list(ckpt["tf_lut"].shape))
+        log(f"cli fit: {json.dumps(rec['cli_fit'])}")
+
+        # (f) run --renderer ray --live-sweep: 3 frames at 96x64, the last saved
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            run_cli(["run", "--renderer", "ray", "--live-sweep", "--frames", "3", "--width", "96", "--height", "64",
+                     *(["--device", "cpu", "--side", str(cli_side)] if not cuda else [])])
+        finally:
+            os.chdir(cwd)
+        pngs = list(Path(tmp).glob("screenshot_*.png"))
+        if len(pngs) != 1 or pngs[0].read_bytes()[:8] != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError(f"run --live-sweep: wrote {pngs}")
+        rec["live_sweep_png_bytes"] = pngs[0].stat().st_size
+
+    rec["wall_s"] = time.perf_counter() - t_phase
+    return rec, sweep_launches
 
 
 class NoTranspose:
@@ -1516,10 +1757,7 @@ def main(argv=None) -> int:
 
     # phase 4: serving at full size
     configs = {
-        "bench": RenderParams(
-            interpolation="trilinear", density_threshold=0.15, raymarching_step_size=0.005,
-            use_shading=False, use_gaussian_smoothing=False, u8_volume=True,
-        ),
+        "bench": bench_forward(),
         "cli_default": RenderParams(
             interpolation="nearest", density_threshold=0.12, raymarching_step_size=0.01,
             use_shading=True, use_gaussian_smoothing=False, u8_volume=True,
@@ -1618,14 +1856,11 @@ def main(argv=None) -> int:
         name: make_renderer(teapot, p, FULL_H, FULL_W, backend="slab_cuda", device=dev) for name, p in la_configs.items()
     }
 
-    def counts():
-        return slab_march.LAUNCHES, lookahead.STRAIGHT_LAUNCHES, lookahead.CONE_LAUNCHES
-
     la_cams, la_frames, la_counts = {}, {}, {}
     # the look-ahead serving path starts here
     slab_march.LAUNCHES = slab_replay.LAUNCHES = lookahead.STRAIGHT_LAUNCHES = lookahead.CONE_LAUNCHES = 0
     for name, render in la_renderers.items():
-        before = counts()
+        before = launch_counts()
         cam = Camera(aspect=FULL_W / FULL_H)
         for i in range(FRAMES):
             cam = cam.orbit(2.0, 0.0, 0.0)
@@ -1633,8 +1868,8 @@ def main(argv=None) -> int:
             if i == 0:
                 la_cams[name], la_frames[name] = cam, img
         torch.cuda.synchronize()
-        la_counts[name] = tuple(a - b for a, b in zip(counts(), before))
-    la_launches = counts()  # the look-ahead serving path ends here
+        la_counts[name] = tuple(a - b for a, b in zip(launch_counts(), before))
+    la_launches = launch_counts()  # the look-ahead serving path ends here
     if slab_replay.LAUNCHES:
         raise AssertionError("the look-ahead serving path launched the replay")
     want_counts = {"base": (FRAMES, 0, 0), "importance": (FRAMES, FRAMES, 0),
@@ -1759,14 +1994,14 @@ def main(argv=None) -> int:
     slab_march.LAUNCHES = slab_replay.LAUNCHES = lookahead.STRAIGHT_LAUNCHES = lookahead.CONE_LAUNCHES = 0
     cam = Camera(aspect=FULL_W / FULL_H).orbit(2.0, 0.0, 0.0)
     for name, render in mode_renderers.items():
-        before = counts()
+        before = launch_counts()
         for i in range(FRAMES):
             img = render(cam.orbit(2.0 * i, 0.0, 0.0).matrices())
             if i == 0:
                 mode_frames[name] = img
         torch.cuda.synchronize()
-        mode_counts[name] = tuple(a - b for a, b in zip(counts(), before))
-    mode_launches = counts()  # the coloring and first-hit serving path ends here
+        mode_counts[name] = tuple(a - b for a, b in zip(launch_counts(), before))
+    mode_launches = launch_counts()  # the coloring and first-hit serving path ends here
     if slab_replay.LAUNCHES or any(c != (FRAMES, 0, 0) for c in mode_counts.values()):
         raise AssertionError(f"coloring / first-hit serving: (march, straight, cone) launches {mode_counts}")
     log(f"coloring / first-hit serving: {mode_launches[0]} march launches for {len(mode_configs) * FRAMES} frames")
@@ -2522,12 +2757,12 @@ def main(argv=None) -> int:
         for flags in ([], ["--importance", "--cone", "--scene", "teapot"], ["--coloring", "--scene", "teapot"],
                       ["--first-hit"]):
             out = Path(tmp) / "shot.png"
-            before = counts()
+            before = launch_counts()
             rc = cli.main(["screenshot", *flags, "--output", str(out)])
             data = out.read_bytes() if out.exists() else b""
             if rc != 0 or data[:8] != b"\x89PNG\r\n\x1a\n":
                 raise AssertionError(f"CLI screenshot {flags} failed (rc {rc}, {len(data)} bytes)")
-            launched = tuple(a - b for a, b in zip(counts(), before))
+            launched = tuple(a - b for a, b in zip(launch_counts(), before))
             if launched != ((1, 0, 1) if "--cone" in flags else (1, 0, 0)):
                 raise AssertionError(f"CLI screenshot {flags}: (march, straight, cone) launches {launched}")
             out.unlink()
@@ -2545,6 +2780,11 @@ def main(argv=None) -> int:
     if all_counts() != before:
         raise AssertionError(f"the t-step path launched kernels: {before} -> {all_counts()}")
     log(json.dumps({"tstep": tstep}))
+
+    # phase 10: the CLI's benchmark (its sweep is a main path of B1, B6 and
+    # B7), fit and run --live-sweep; the harness's clocks; fit_scene
+    cli_rec, sweep_launches = cli_path(dev, scene)
+    log(json.dumps({"cli": cli_rec}))
 
     # B2 in every route and cell: ms, each --parent checkout's ms on the
     # same inputs (with the zero-fill its wrapper did; under smoothing also
@@ -2633,6 +2873,8 @@ def main(argv=None) -> int:
     rows["slab_replay"]["launches"] += gtrain_launches[1] + ctrain_launches[1] + mtrain_launches[1]
     rows["lookahead_straight"]["launches"] += mtrain_launches[2]
     rows["lookahead_cone"]["launches"] += mtrain_launches[3]
+    for kernel, n in zip(("slab_march", "lookahead_straight", "lookahead_cone"), sweep_launches):
+        rows[kernel]["launches"] += n
     # the modes of this slice: B1's coloring and first-hit frames, and B1
     # and B2 in the gated and coloring training steps, each with its bound
     rows["slab_march"]["modes"] = {

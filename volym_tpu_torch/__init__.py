@@ -15,6 +15,11 @@ imports torch and numpy, never jax.  Two families of renderers:
   ``render/fast.py`` and the replay-backward ``render/diff.py``, with
   ``render/debug_vis.py``'s views), in PyTorch ops on any device, in the
   same modes plus adaptive stepping.
+
+Beside them: ``bench/harness.py`` (the reference's benchmark sweep and
+the host's and the profiler's clocks), ``optim.py`` (``fit_scene``: Adam
+through the t-step replay backward), ``io`` (PNG and ``.npz``
+checkpoints), ``devtools.py`` (NRRD -> segments) and ``cli.py``.
 """
 
 from volym_tpu_torch.camera import Camera, CameraMatrices, camera_matrices

@@ -1,7 +1,10 @@
 """Command-line entry point of the PyTorch port.
 
     python -m volym_tpu_torch run [simple]   render an orbit sweep, log FPS, save PNG
+    python -m volym_tpu_torch benchmark      the reference sweep -> CSV
     python -m volym_tpu_torch screenshot     single frame -> PNG
+    python -m volym_tpu_torch fit            inverse-rendering demo -> .npz
+    python -m volym_tpu_torch devtools ...   NRRD -> segments.json + raw
 
 The flags are those of ``python -m volym_tpu``, plus ``--device``.  The
 default renderer is the CUDA march kernel (``--renderer slab_cuda`` on
@@ -15,16 +18,23 @@ whose lobster is important.  ``--gaussian`` (Gaussian-smoothed density
 along the ray) is on by default as in the reference; ``--no-gaussian``
 turns it off.  ``--coloring`` colours by importance (a heat map; it
 replaces ``--importance``), ``--first-hit`` takes the colour of the first
-sample past the threshold.  ``--distributed`` and ``--profile`` are not
-ported yet and raise ``NotImplementedError``.
+sample past the threshold.  ``--profile DIR`` writes a ``torch.profiler``
+trace of ``run``'s frames or ``benchmark``'s sweep to ``DIR/trace.json``;
+``run --live-sweep`` with ``--renderer ray`` changes the threshold and the
+step size every frame.  ``fit`` renders its target with the golden t-step
+march and fits the volume and the LUT through the replay backward.
+``--distributed`` and ``benchmark --scaling`` are not ported yet and raise
+``NotImplementedError``; the viewer (``view``) is not ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import sys
 import time
+from pathlib import Path
 
 log = logging.getLogger("volym_tpu_torch")
 
@@ -73,43 +83,81 @@ def _params(args):
     )
 
 
-def _renderer(args):
+def _renderer(args, scene, params):
     from volym_tpu_torch.render.renderer import make_renderer
 
-    for flag in ("distributed", "profile"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported to volym_tpu_torch yet")
-    return make_renderer(
-        _default_scene(args), _params(args), args.height, args.width,
-        backend=args.renderer, device=args.device,
-    )
+    return make_renderer(scene, params, args.height, args.width, backend=args.renderer, device=args.device)
 
 
-def _sync(img) -> None:
-    if img.device.type == "cuda":
-        import torch
+def _device(args):
+    """``--device`` as a torch device; a CUDA device without CUDA raises
+    (no fallback to the CPU)."""
+    import torch
 
-        torch.cuda.synchronize(img.device)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device} needs CUDA, and torch.cuda.is_available() is False")
+    return device
+
+
+@contextlib.contextmanager
+def _maybe_profile(args):
+    """A ``torch.profiler`` trace of the region (CPU activity, and CUDA
+    activity on a CUDA device) into ``--profile DIR``/trace.json."""
+    if not args.profile:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if _device(args).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    path = Path(args.profile) / "trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    log.info("wrote profiler trace to %s", path)
 
 
 def cmd_run(args) -> int:
     """Render ``--frames`` frames along an orbit sweep (2 degrees a frame),
-    log FPS once a second, save the last frame."""
+    log FPS once a second, save the last frame.  With ``--live-sweep`` and
+    ``--renderer ray``, frame i renders through ``fast.render`` with the
+    threshold and the step size changed (the GUI panel's analog)."""
     from volym_tpu_torch import io as vio
+    from volym_tpu_torch.bench.harness import force_sync
 
-    render = _renderer(args)
+    scene = _default_scene(args)
+    params = _params(args)
+    live = args.live_sweep and args.renderer == "ray"
+    if live:
+        from volym_tpu_torch.render import fast
+
+        device = _device(args)
+        scene = scene.to(device)
+    else:
+        render = _renderer(args, scene, params)
     cam = _camera(args)
     frames, t_last, n_last = 0, time.perf_counter(), 0
     img = None
-    for _ in range(args.frames):
-        cam = cam.orbit(2.0, 0.0, 0.0)
-        img = render(cam.matrices())
-        _sync(img)
-        frames += 1
-        now = time.perf_counter()
-        if now - t_last >= 1.0:
-            log.info("FPS: %.1f", (frames - n_last) / (now - t_last))
-            t_last, n_last = now, frames
+    with _maybe_profile(args):
+        for i in range(args.frames):
+            cam = cam.orbit(2.0, 0.0, 0.0)
+            if live:
+                live_params = params.replace(
+                    density_threshold=0.05 + 0.2 * (i % 10) / 10.0,
+                    raymarching_step_size=params.raymarching_step_size * (1.0 + 0.5 * (i % 7) / 7.0),
+                )
+                img = fast.render(scene, cam.matrices(device=device), live_params, args.height, args.width)
+            else:
+                img = render(cam.matrices())
+            force_sync(img)
+            frames += 1
+            now = time.perf_counter()
+            if now - t_last >= 1.0:
+                log.info("FPS: %.1f", (frames - n_last) / (now - t_last))
+                t_last, n_last = now, frames
     if img is not None:
         log.info("saved %s", vio.save_screenshot(img, "."))
     return 0
@@ -118,10 +166,91 @@ def cmd_run(args) -> int:
 def cmd_screenshot(args) -> int:
     from volym_tpu_torch import io as vio
 
-    img = _renderer(args)(_camera(args).matrices())
+    img = _renderer(args, _default_scene(args), _params(args))(_camera(args).matrices())
     out = args.output or f"screenshot_{int(time.time())}.png"
     vio.write_png(out, img)
     log.info("saved %s", out)
+    return 0
+
+
+def cmd_benchmark(args) -> int:
+    """The reference sweep (``harness.benchmark_all``) from the preset
+    ``BENCHMARK_PARAMS``: only ``--renderer``, ``--device``, the scene flags
+    and ``--width``/``--height`` reach it.  -> ``--output`` or
+    benchmark_results.csv."""
+    from volym_tpu_torch.bench import harness
+    from volym_tpu_torch.render.renderer import make_renderer
+
+    if args.scaling:
+        raise NotImplementedError("benchmark --scaling needs volym_tpu_torch.parallel, which is not ported yet")
+    scene = _default_scene(args)
+    m = _camera(args).matrices()
+
+    def render_factory(params):
+        r = make_renderer(scene, params, args.height, args.width, backend=args.renderer, device=args.device)
+        # no fence: run_trial fences every DISPATCH_BATCH frames
+        return lambda: r(m)
+
+    if args.step_histogram:
+        from volym_tpu_torch.render import debug_vis
+
+        device = _device(args)
+        edges, hist = debug_vis.step_count_histogram(
+            scene.to(device), m.to(device), _params(args).replace(adaptive_stepping=True),
+            args.height, args.width,
+        )
+        for lo, hi, n in zip(edges[:-1], edges[1:], hist):
+            log.info("steps %4d-%4d: %d rays", int(lo), int(hi), int(n))
+
+    with _maybe_profile(args):
+        rows = harness.benchmark_all(
+            render_factory,
+            num_trials=args.trials,
+            seconds=args.seconds,
+            height=args.height,
+            width=args.width,
+            step_sizes=tuple(args.sweep_steps) if args.sweep_steps else harness.STEP_SIZES,
+            log=log.info,
+        )
+    out = args.output or "benchmark_results.csv"
+    harness.write_csv(rows, out)
+    log.info("wrote %s (%d rows)", out, len(rows))
+    return 0
+
+
+def cmd_fit(args) -> int:
+    """Fit the volume and the LUT, from a flat volume, to the golden render
+    of the scene: ``--frames`` Adam steps, the loss logged every 10;
+    ``volume`` and ``tf_lut`` -> ``--output`` or fitted_scene.npz."""
+    import torch
+
+    from volym_tpu_torch import io as vio
+    from volym_tpu_torch.optim import fit_scene
+    from volym_tpu_torch.render import golden
+    from volym_tpu_torch.scene import Scene
+
+    device = _device(args)
+    target_scene = _default_scene(args).to(device)
+    cm = _camera(args).matrices(device=device)
+    # a scene-only fit on the f32 volume: a fitted volume leaves the u8 grid
+    # on the first step
+    params = _params(args).replace(adaptive_stepping=False, camera_grads=False, u8_volume=False)
+    target = golden.render(target_scene, cm, params, args.height, args.width)
+    # the init must clear the density threshold, or the renderer masks every
+    # sample and the fit has exactly-zero gradients (a flat loss)
+    init = Scene(
+        volume=torch.full_like(target_scene.volume, max(0.15, params.density_threshold + 0.03)),
+        importance=target_scene.importance,
+        tf_lut=target_scene.tf_lut,
+    )
+
+    def cb(i, loss):
+        if i % 10 == 0:
+            log.info("fit step %d loss %.6f", i, loss)
+
+    res = fit_scene(init, cm, target, params, steps=args.frames, callback=cb)
+    log.info("loss: %.6f -> %.6f", res.losses[0], res.losses[-1])
+    vio.save_checkpoint(args.output or "fitted_scene.npz", {"volume": res.scene.volume, "tf_lut": res.scene.tf_lut})
     return 0
 
 
@@ -178,13 +307,39 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--frames", type=int, default=100)
         p.add_argument("--output")
         p.add_argument("--distributed", action="store_true", help="multi-host run (not ported yet)")
-        p.add_argument("--profile", metavar="DIR", help="profiler trace (not ported yet)")
+        p.add_argument(
+            "--profile", metavar="DIR",
+            help="write a torch.profiler trace of run's frames or benchmark's sweep to DIR/trace.json",
+        )
 
     p_run = sub.add_parser("run", help="orbit-sweep render loop")
     p_run.add_argument("demo", nargs="?", default="simple", choices=["simple"])
     common(p_run)
+    p_run.add_argument(
+        "--live-sweep", action="store_true",
+        help="with --renderer ray: change the threshold and the step size every frame",
+    )
+    p_bench = sub.add_parser("benchmark", help="full reference sweep -> CSV")
+    common(p_bench)
+    p_bench.add_argument("--trials", type=int, default=3)
+    p_bench.add_argument("--seconds", type=float, default=2.0)
+    p_bench.add_argument("--sweep-steps", type=float, nargs="*")
+    p_bench.add_argument(
+        "--scaling", action="store_true",
+        help="rays/s vs device count table instead of the parameter sweep (not ported yet)",
+    )
+    p_bench.add_argument(
+        "--step-histogram", action="store_true",
+        help="log the per-ray march-length histogram before the sweep",
+    )
     p_shot = sub.add_parser("screenshot", help="single frame -> PNG")
     common(p_shot)
+    p_fit = sub.add_parser("fit", help="inverse-rendering demo")
+    common(p_fit)
+    p_dev = sub.add_parser("devtools", help="NRRD -> segments.json + raw")
+    p_dev.add_argument("input")
+    p_dev.add_argument("json_out")
+    p_dev.add_argument("raw_out")
     return ap
 
 
@@ -194,7 +349,15 @@ def main(argv=None) -> int:
         # reference default: `volym` == `volym run simple`
         args = build_parser().parse_args(["run", *(argv or [])])
     _setup_logging(args.debug)
-    return {"run": cmd_run, "screenshot": cmd_screenshot}[args.command](args)
+    if getattr(args, "distributed", False):
+        raise NotImplementedError("--distributed is not ported to volym_tpu_torch yet")
+    if args.command == "devtools":
+        from volym_tpu_torch import devtools
+
+        devtools.convert(args.input, args.json_out, args.raw_out)
+        return 0
+    cmd = {"run": cmd_run, "benchmark": cmd_benchmark, "screenshot": cmd_screenshot, "fit": cmd_fit}
+    return cmd[args.command](args)
 
 
 if __name__ == "__main__":

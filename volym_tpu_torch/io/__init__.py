@@ -1,7 +1,9 @@
-"""Image IO: screenshot-to-PNG (reference ``src/state.rs:161-220``).
+"""Image and checkpoint IO: screenshot-to-PNG (reference
+``src/state.rs:161-220``) and the fitted scene's ``.npz`` checkpoints.
 
 The PNG encoder is the standard library's ``zlib`` and ``struct``, so the
-package needs no imaging library.
+package needs no imaging library.  A checkpoint is ``np.savez`` of numpy
+arrays, the JAX package's format, so each package reads the other's.
 """
 
 from __future__ import annotations
@@ -14,12 +16,18 @@ from pathlib import Path
 import numpy as np
 
 
+def _numpy(a) -> np.ndarray:
+    """An array or tensor (on any device, with or without a gradient) as a
+    numpy array."""
+    if hasattr(a, "detach"):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def to_uint8_image(img) -> np.ndarray:
     """(H, W, C) float image (array or tensor) -> uint8, with the
     clamp+quantise of an rgba8unorm store (``wgsl:328``)."""
-    if hasattr(img, "detach"):
-        img = img.detach().cpu().numpy()
-    img = np.asarray(img)
+    img = _numpy(img)
     if img.dtype == np.uint8:
         return img
     return (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
@@ -51,3 +59,15 @@ def save_screenshot(img, directory=".") -> Path:
     path = Path(directory) / f"screenshot_{int(time.time())}.png"
     write_png(path, img)
     return path
+
+
+def save_checkpoint(path, params: dict) -> None:
+    """Persist optimised scene parameters (voxels, TF): ``np.savez`` of each
+    value as a numpy array, as the JAX package writes them."""
+    np.savez(path, **{k: _numpy(v) for k, v in params.items()})
+
+
+def load_checkpoint(path) -> dict:
+    """A checkpoint of either package -> {name: numpy array}."""
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
