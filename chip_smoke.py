@@ -202,7 +202,26 @@ Phases, in order; any failure ends the run with a nonzero exit:
    64x64, 10 steps at threshold .05: the loss falls and its ``.npz`` reads
    back with a (32, 32, 32) volume and the LUT's shape; (f) ``run
    --renderer ray --live-sweep``, 3 frames at 96x64, writes a PNG.  One JSON
-   line, ``{"cli": ...}``, with the phase's wall time.
+   line, ``{"cli": ...}``, with the phase's wall time;
+11. distribution and the viewer, :func:`distributed_path`, every launch
+   count at 0 before it and read after it (a main path): (a) a one-rank
+   NCCL group through ``launch.maybe_initialize``; (b) ``render_sharded``
+   (``slab_cuda``) at 1024x768 of the 256^3 bonsai in
+   ``cli_default_gaussian`` and of the teapot in ImportanceCone (the sweep
+   preset at step .005) on meshes of 1 and of 4 virtual shards on the
+   card: each frame bit for bit with ``make_renderer``'s, B1 (and B7)
+   launched once a shard, the sharded and the single-device frames timed by
+   CUDA events; (c) ``make_train_step(backend="slab_cuda")`` at 256x256 in
+   ``bench.py``'s config and smoothed with camera gradients, on 1 and 4
+   shards, held to autograd through the single-device ``render_diff`` by
+   the repo's rule, both steps timed; (d) the NCCL ``all_reduce`` of a 67
+   MB d_volume timed; (e) ``fit_distributed``, 5 steps: the loss falls;
+   (f) the CLI ``fit --distributed`` (the 32^3 sphere at 64x64, the loss
+   falls) and ``benchmark --scaling`` (one row); (g) the viewer on
+   127.0.0.1:0 in a thread: ``/frame`` at 1024x768 is the renderer's frame
+   (its PNG bytes), its render ms from ``X-Render-Ms``, and one
+   ``/screenshot``; the group is destroyed at the end.  One JSON line,
+   ``{"distributed": ...}``, with the phase's wall time.
 
 In phases 3-6 each case and cell where B1 runs also prints how its
 (block, batch) pairs split between the staged route and the direct one,
@@ -1065,6 +1084,229 @@ def cli_path(dev, bonsai, full_hw=(FULL_H, FULL_W), fit_side=256, cli_side=FULL_
 
     rec["wall_s"] = time.perf_counter() - t_phase
     return rec, sweep_launches
+
+
+def all_launches() -> dict:
+    """The launch count of every kernel's wrapper, by the summary's names
+    (B3 and B4 as the fused fold-and-scatter and the scatter alone)."""
+    from volym_tpu_torch.ops import feats_grad, lookahead, slab_march, slab_replay, voxel_grad
+
+    return dict(slab_march=slab_march.LAUNCHES, slab_replay=slab_replay.LAUNCHES,
+                lookahead_straight=lookahead.STRAIGHT_LAUNCHES, lookahead_cone=lookahead.CONE_LAUNCHES,
+                voxel_grad=voxel_grad.FOLD_LAUNCHES + voxel_grad.LAUNCHES,
+                voxel_grad_shaded=voxel_grad.FOLD_SHADED_LAUNCHES + voxel_grad.SHADED_LAUNCHES,
+                feats_grad=feats_grad.LAUNCHES)
+
+
+def zero_launches() -> None:
+    from volym_tpu_torch.ops import feats_grad, lookahead, slab_march, slab_replay, voxel_grad
+
+    slab_march.LAUNCHES = slab_replay.LAUNCHES = feats_grad.LAUNCHES = 0
+    lookahead.STRAIGHT_LAUNCHES = lookahead.CONE_LAUNCHES = 0
+    voxel_grad.LAUNCHES = voxel_grad.SHADED_LAUNCHES = voxel_grad.FOLD_LAUNCHES = voxel_grad.FOLD_SHADED_LAUNCHES = 0
+
+
+def distributed_path(dev, bonsai, teapot, full_hw=(FULL_H, FULL_W), train_hw=(256, 256), cli_side=FULL_SIDE):
+    """Phase 11: distribution and the viewer, :func:`distributed_path`, on
+    ``dev`` (the card, under a one-rank NCCL group; the CPU, through the
+    plain march under a gloo group, at small sizes, to rehearse it, where
+    no launch is counted and no time is taken).  Raises on any failure;
+    -> (the ``distributed`` record, the phase's launches by kernel)."""
+    import math
+    import re
+    import threading
+    import urllib.request
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from volym_tpu_torch import BENCHMARK_PARAMS, Camera, RenderParams, Scene, cli, parity, viewer
+    from volym_tpu_torch import io as vio
+    from volym_tpu_torch.parallel import launch
+    from volym_tpu_torch.parallel import mesh as pmesh
+    from volym_tpu_torch.render.renderer import make_renderer
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    backend = "slab_cuda" if cuda else "slab"
+    fh, fw = full_hw
+    th, tw = train_hw
+    rec = {}
+    timed = cuda_ms if cuda else (lambda fn, reps: (fn(), None)[1])
+    # the main path starts here: every count at 0, read when the phase ends
+    zero_launches()
+    # (a) a one-rank group through the bootstrap (env={}: a world of one)
+    if not launch.maybe_initialize(True, device=dev.type, timeout=timedelta(seconds=120), env={}):
+        raise AssertionError("maybe_initialize did not bring up the group")
+    try:
+        rec["group"] = dict(backend=str(dist.get_backend()), world=dist.get_world_size())
+        log(f"distributed: {json.dumps(rec['group'])}")
+
+        # (b) sharded frames against the single-device frame, bit for bit;
+        # B1 (and B7) once a shard
+        frame_cells = {
+            "bonsai cli_default_gaussian": (bonsai, cli._params(cli.build_parser().parse_args(["screenshot"]))),
+            "teapot importance_cone": (teapot, BENCHMARK_PARAMS.replace(
+                raymarching_step_size=0.005, u8_volume=True, use_importance_rendering=True,
+                use_cone_importance_check=True)),
+        }
+        cm = Camera(aspect=fw / fh).orbit(30.0, 20.0, 0.0).matrices()
+        rec["frames"] = {}
+        for name, (sc, p) in frame_cells.items():
+            render = make_renderer(sc, p, fh, fw, backend=backend, device=dev)
+            want = render(cm)
+            row = dict(single_ms=timed(lambda: render(cm), 5))
+            for shards in (1, 4):
+                mesh = pmesh.make_mesh([dev] * shards)
+                before = all_launches()
+                got = pmesh.render_sharded(sc, cm, p, fh, fw, mesh, backend=backend)
+                if cuda:
+                    torch.cuda.synchronize()
+                b1, b7 = (all_launches()[k] - before[k] for k in ("slab_march", "lookahead_cone"))
+                if cuda and (b1, b7) != (shards, shards if p.use_cone_importance_check else 0):
+                    raise AssertionError(f"sharded {name}, {shards} shards: B1/B7 launches {(b1, b7)}")
+                if not torch.equal(got, want):
+                    raise AssertionError(f"sharded {name}, {shards} shards: {int((got != want).sum())} entries differ "
+                                         "from the single-device frame")
+                row[f"{shards}_shards_ms"] = timed(
+                    lambda: pmesh.render_sharded(sc, cm, p, fh, fw, mesh, backend=backend), 5)
+                row[f"{shards}_shards_launches"] = dict(B1=b1, B7=b7)
+            rec["frames"][name] = row
+            log(f"distributed frame {name} {fh}x{fw}, bit for bit at 1 and 4 shards: {json.dumps(row)}")
+
+        # (c) the sharded train step against the single-device step
+        step_cells = {
+            "bench": RenderParams(interpolation="trilinear", density_threshold=0.15, raymarching_step_size=0.005,
+                                  use_shading=False, use_gaussian_smoothing=False, u8_volume=True,
+                                  camera_grads=False),
+            "bench_gaussian camera": RenderParams(interpolation="trilinear", density_threshold=0.15,
+                                                  raymarching_step_size=0.005, use_shading=False, u8_volume=True),
+        }
+        cm = Camera(aspect=tw / th, distance=1.0).orbit(30.0, 20.0, 0.0).matrices()
+        rec["steps"] = {}
+        for name, p in step_cells.items():
+            fixed = p.replace(adaptive_stepping=False, u8_volume=False)
+            target = make_renderer(bonsai, p, th, tw, backend=backend, device=dev)(cm).detach() * 0.8
+            leaves = Scene(*(t.detach().clone().requires_grad_() for t in (bonsai.volume, bonsai.importance,
+                                                                             bonsai.tf_lut)))
+            single = make_renderer(leaves, fixed, th, tw, backend=backend, device=dev, differentiable=True)
+
+            def single_step():
+                leaves.volume.grad = leaves.tf_lut.grad = leaves.importance.grad = None
+                loss = torch.mean((single(cm) - target) ** 2)
+                loss.backward()
+                return loss
+
+            ref = single_step().detach()
+            first_grads = (leaves.volume.grad.clone(), leaves.tf_lut.grad.clone())
+            # B2 sums by float atomics, whose order may vary from run to run:
+            # the single-device step again on the same inputs, against its first run
+            reruns = dict(runs=8, loss_differs=0, d_volume_differs=0, d_lut_differs=0, d_volume_max_abs_diff=0.0)
+            for _ in range(reruns["runs"]):
+                again = single_step().detach()
+                reruns["loss_differs"] += not torch.equal(again, ref)
+                reruns["d_volume_differs"] += not torch.equal(leaves.volume.grad, first_grads[0])
+                reruns["d_lut_differs"] += not torch.equal(leaves.tf_lut.grad, first_grads[1])
+                reruns["d_volume_max_abs_diff"] = max(reruns["d_volume_max_abs_diff"], float(
+                    (leaves.volume.grad - first_grads[0]).abs().max()))
+            row = dict(single_ms=timed(single_step, 3), single_reruns=reruns)
+            for shards in (1, 4):
+                step = pmesh.make_train_step(p, th, tw, pmesh.make_mesh([dev] * shards), backend=backend,
+                                             camera_matrices=cm)
+                before = all_launches()
+                loss, grads = step(bonsai, cm, target)
+                launched = {k: v - before[k] for k, v in all_launches().items() if v != before[k]}
+                if not math.isclose(float(loss), float(ref), rel_tol=1e-5):
+                    raise AssertionError(f"sharded step {name}, {shards} shards: loss {float(loss)} vs {float(ref)}")
+                vol = parity.check_close(leaves.volume.grad, grads.volume, f"sharded step {name} d_volume")
+                lut, _ = parity.check_lut_grad(leaves.tf_lut.grad, grads.tf_lut, bonsai.tf_lut,
+                                               f"sharded step {name} d_lut")
+                if bool(grads.importance.any()) or not float(grads.volume.abs().max()) > 0:
+                    raise AssertionError(f"sharded step {name}: d_importance nonzero or d_volume zero")
+                row[f"{shards}_shards_ms"] = timed(lambda: step(bonsai, cm, target), 3)
+                row[f"{shards}_shards"] = dict(launches=launched, d_volume_max_abs_err=vol.max_abs_err,
+                                               d_volume_edge_frac=vol.edge_frac, d_lut_max_abs_err=lut.max_abs_err)
+            rec["steps"][name] = row
+            log(f"distributed step {name} {th}x{tw}: {json.dumps(row)}")
+
+        # (d) the all-reduce of a 256^3 d_volume (67 MB)
+        d_vol = torch.ones(bonsai.volume.shape, dtype=torch.float32, device=dev)
+        rec["all_reduce"] = dict(mb=nbytes(d_vol) / 1e6, ms=timed(lambda: dist.all_reduce(d_vol), 20))
+        log(f"distributed all_reduce of d_volume: {json.dumps(rec['all_reduce'])}")
+
+        # (e) fit_distributed, 5 steps from a flat volume
+        p = step_cells["bench"]
+        target = make_renderer(bonsai, p, th, tw, backend=backend, device=dev)(cm).detach()
+        init = Scene(torch.full_like(bonsai.volume, 0.18), bonsai.importance, bonsai.tf_lut)
+        _, losses = launch.fit_distributed(init, cm, target, p.replace(u8_volume=False), steps=5, backend=backend)
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"fit_distributed: the loss did not fall ({losses})")
+        rec["fit_distributed"] = losses
+        log(f"fit_distributed {th}x{tw}: losses {losses}")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            # (f) the CLI: fit --distributed and benchmark --scaling
+            where = [] if cuda else ["--device", "cpu", "--renderer", "slab"]
+            npz = Path(tmp) / "fitted.npz"
+            with LogRecords() as records:
+                rc = cli.main(["fit", "--distributed", "--scene", "sphere", "--side", "32", "--width", "64",
+                               "--height", "64", "--frames", "10", "--threshold", "0.05", "--no-gaussian",
+                               "--output", str(npz), *where])
+            (first, last), = [tuple(map(float, m.groups())) for msg, _ in records
+                              if (m := re.fullmatch(r"loss: (\S+) -> (\S+)", msg))]
+            if rc != 0 or not last < first or vio.load_checkpoint(npz)["volume"].shape != (32, 32, 32):
+                raise AssertionError(f"CLI fit --distributed: rc {rc}, loss {first} -> {last}")
+            out = Path(tmp) / "scaling.csv"
+            rc = cli.main(["benchmark", "--scaling", "--trials", "1", "--seconds", "0.25", "--side", str(cli_side),
+                           "--width", str(fw), "--height", str(fh), "--output", str(out), *where])
+            rows = out.read_text().splitlines()
+            if rc != 0 or len(rows) != 2 or not rows[0].endswith("devices,rays_per_s,scaling_efficiency"):
+                raise AssertionError(f"CLI benchmark --scaling: rc {rc}, {rows}")
+            row = dict(zip(rows[0].split(","), rows[1].split(",")))
+            rec["cli"] = dict(fit_loss=[first, last], scaling={k: row[k] for k in (
+                "devices", "avg_frame_time_ms", "rays_per_s", "scaling_efficiency")})
+            log(f"distributed cli: {json.dumps(rec['cli'])}")
+
+            # (g) the viewer on 127.0.0.1:0 in a thread: /frame is the
+            # renderer's frame, and one /screenshot
+            p = frame_cells["bonsai cli_default_gaussian"][1]
+            srv = viewer.make_server(bonsai, p, fh, fw, port=0, screenshot_dir=tmp, backend=backend, device=dev)
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            try:
+                host, port = srv.server_address
+                query = "h=30&v=20&dist=1.2"
+                got, render_ms = [], []
+                for _ in range(4):
+                    with urllib.request.urlopen(f"http://{host}:{port}/frame?{query}", timeout=120) as r:
+                        got.append(r.read())
+                        render_ms.append(float(r.headers["X-Render-Ms"]))
+                with urllib.request.urlopen(f"http://{host}:{port}/screenshot?{query}", timeout=120) as r:
+                    shot = Path(json.loads(r.read())["path"])
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                thread.join(timeout=60)
+            q = {k: [v] for k, v in (kv.split("=") for kv in query.split("&"))}
+            want = make_renderer(bonsai, p, fh, fw, backend=backend, device=dev)(
+                viewer.camera_from_query(q, fw / fh).matrices())
+            if got[0] != vio.png_bytes(want) or len(set(got)) != 1:
+                raise AssertionError("viewer: /frame is not the renderer's frame")
+            if thread.is_alive() or shot.read_bytes()[:8] != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"viewer: thread alive {thread.is_alive()}, screenshot {shot}")
+            rec["viewer"] = dict(frame_ms=render_ms[1:] if cuda else None, png_bytes=len(got[0]),
+                                 screenshot_bytes=shot.stat().st_size)
+            log(f"distributed viewer {fh}x{fw}: {json.dumps(rec['viewer'])}")
+    finally:
+        dist.destroy_process_group()
+    launches = all_launches()  # the main path ends here
+    if cuda and not all(launches[k] > 0 for k in ("slab_march", "slab_replay", "lookahead_cone", "voxel_grad",
+                                                  "feats_grad")):
+        raise AssertionError(f"phase 11 launches: {launches}")
+    rec["launches"] = launches
+    rec["wall_s"] = time.perf_counter() - t_phase
+    return rec, launches
 
 
 class NoTranspose:
@@ -2786,6 +3028,12 @@ def main(argv=None) -> int:
     cli_rec, sweep_launches = cli_path(dev, scene)
     log(json.dumps({"cli": cli_rec}))
 
+    # phase 11: distribution (a one-rank NCCL group, sharded frames and
+    # training steps, fit_distributed, the CLI's fit --distributed and
+    # benchmark --scaling) and the viewer: a main path of B1, B2, B3, B5, B7
+    dist_rec, dist_launches = distributed_path(dev, scene, teapot)
+    log(json.dumps({"distributed": dist_rec}))
+
     # B2 in every route and cell: ms, each --parent checkout's ms on the
     # same inputs (with the zero-fill its wrapper did; under smoothing also
     # with dd by torch.empty), the bound (and the bound with all of dd
@@ -2892,6 +3140,8 @@ def main(argv=None) -> int:
     c = ctraining["bench_gaussian"]
     rows["feats_grad"] = dict(launches=ctrain_launches[4], ms=c["feats_grad_ms"], plain_ms=c["plain_feats_grad_ms"],
                               bound_ms=c["feats_grad_bound"][0], bound_by=c["feats_grad_bound"][1])
+    for kernel, n in dist_launches.items():
+        rows[kernel]["launches"] += n
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0], "replaces": KERNELS[name][1],
          "launches": row["launches"], "max_abs_err": err[name], "max_rel_err": rel[name],

@@ -1,6 +1,7 @@
 """volym_tpu_torch.bench.harness against the JAX package's harness: the
 sweep's constants, statistics, row order, parameters and CSV schema, the
-trial loop's counting, and the fence and clocks on the CPU."""
+trial loop's counting, the fence and clocks on the CPU, and the scaling
+table on virtual CPU shards."""
 
 import csv
 
@@ -133,5 +134,25 @@ def test_device_frame_ms_raises_on_the_cpu():
 
 
 def test_scaling_table_not_ported():
-    with pytest.raises(NotImplementedError, match="volym_tpu_torch.parallel"):
-        harness.scaling_table(None, None, None, 8, 8)
+    """``scaling_table``, which needed the then unported
+    ``volym_tpu_torch.parallel``, runs on virtual CPU shards: the JAX
+    package's rows (``test_scaling_table_on_virtual_mesh``), its counts that
+    divide the rays only, and no default device without CUDA."""
+    from volym_tpu_torch import Camera, RenderParams, Scene
+
+    params = RenderParams(use_gaussian_smoothing=False, raymarching_step_size=0.1, max_steps=40, use_shading=False)
+    scene, cam = Scene.synthetic("sphere", side=16), Camera(aspect=1.0, distance=1.1).orbit(25.0, 10.0, 0.0)
+    rows = harness.scaling_table(scene, cam.matrices(), params, 16, 16, devices=[torch.device("cpu")] * 8,
+                                 device_counts=[1, 2, 3, 8], backend="slab", num_trials=1, seconds=0.05,
+                                 log=lambda *a: None)
+    assert [r["devices"] for r in rows] == [1, 2, 8]
+    assert list(rows[0]) == jharness.SCALING_CSV_FIELDS
+    for r in rows:
+        assert r["rays_per_s"] > 0 and r["scaling_efficiency"] > 0
+    assert rows[0]["scaling_efficiency"] == 1.0
+    assert [r["devices"] for r in harness.scaling_table(
+        scene, cam.matrices(), params, 16, 16, devices=[torch.device("cpu")] * 8, backend="slab", num_trials=1,
+        seconds=0.0, log=lambda *a: None)] == [1, 2, 4, 8]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            harness.scaling_table(scene, cam.matrices(), params, 16, 16)

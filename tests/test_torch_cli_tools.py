@@ -1,7 +1,7 @@
-"""The port's CLI subcommands ``benchmark`` and ``fit``, ``run
---live-sweep`` and ``--profile`` on the CPU, the parser against the JAX
-package's, the refusals that remain, and the import boundary of the new
-modules (no jax)."""
+"""The port's CLI subcommands ``benchmark`` (and ``--scaling``), ``fit``
+(and ``--distributed``), ``view``, ``run --live-sweep`` and ``--profile``
+on the CPU, the parser against the JAX package's, the commands once
+refused, and the import boundary of the new modules (no jax)."""
 
 import csv
 import json
@@ -14,10 +14,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from volym_tpu import cli as jcli
 from volym_tpu.bench import harness as jharness
-from volym_tpu_torch import cli
+from volym_tpu_torch import cli, viewer
 from volym_tpu_torch import io as vio
 from volym_tpu_torch.render import fast
 from volym_tpu_torch.render.renderer import make_renderer
@@ -37,11 +38,11 @@ def _flags(parser):
 
 
 def test_parser_matches_jax():
-    """Every subcommand of the JAX package's CLI but ``view`` (the viewer,
-    not ported), with its flags plus ``--device`` (``devtools`` touches no
-    tensor and has none); the same positionals and defaults."""
+    """Every subcommand of the JAX package's CLI, with its flags plus
+    ``--device`` (``devtools`` touches no tensor and has none); the same
+    positionals and defaults."""
     mine, theirs = _subcommands(cli.build_parser()), _subcommands(jcli.build_parser())
-    assert set(mine) == set(theirs) - {"view"}
+    assert set(mine) == set(theirs)
     for name, sub in mine.items():
         (flags, pos), (jflags, jpos) = _flags(sub), _flags(theirs[name])
         assert pos == jpos, name
@@ -147,14 +148,65 @@ def test_cli_profile_writes_a_trace(tmp_path, monkeypatch, command):
 
 @pytest.mark.parametrize(
     "argv",
-    [["run", "--distributed"], ["screenshot", "--distributed"], ["fit", "--distributed"],
-     ["benchmark", "--distributed"], ["benchmark", "--scaling"]],
+    [["run", "--distributed", "--frames", "2"], ["screenshot", "--distributed"],
+     ["fit", "--distributed", "--frames", "2"],
+     ["benchmark", "--distributed", "--trials", "1", "--seconds", "0.0", "--sweep-steps", "0.2"],
+     ["benchmark", "--scaling", "--trials", "1", "--seconds", "0.0"]],
 )
-def test_cli_unported_raise(tmp_path, argv):
-    with pytest.raises(NotImplementedError):
-        cli.main([*argv, "--device", "cpu", "--renderer", "slab", "--side", "8", "--width", "8", "--height", "8",
-                  "--output", str(tmp_path / "out")])
-    assert not (tmp_path / "out").exists()
+def test_cli_unported_raise(tmp_path, monkeypatch, argv):
+    """The commands the port refused (``NotImplementedError``) before it had
+    ``volym_tpu_torch.parallel`` run now and write their output;
+    ``--distributed`` brings up a gloo world of one on the CPU and takes it
+    down with the command."""
+    monkeypatch.chdir(tmp_path)
+    assert cli.main([*argv, "--device", "cpu", "--renderer", "slab", "--side", "8", "--width", "8", "--height", "8",
+                     "--output", str(tmp_path / "out")]) == 0
+    assert not dist.is_initialized()
+    written = {p.name for p in tmp_path.iterdir()}
+    assert written & {"out", "out.npz"} or argv[0] == "run" and any(n.startswith("screenshot_") for n in written)
+
+
+def test_cli_fit_distributed_writes_a_checkpoint(tmp_path, caplog):
+    """``fit --distributed`` on 8x8 rays: ``launch.fit_distributed`` on the
+    one-process mesh, the loss falls, the coordinator writes."""
+    out = tmp_path / "fitted.npz"
+    with caplog.at_level(logging.INFO, logger="volym_tpu_torch"):
+        rc = cli.main(["fit", "--distributed", *SMALL, "--renderer", "slab", "--scene", "sphere", "--frames", "5",
+                       "--threshold", "0.05", "--no-gaussian", "--no-shading", "--output", str(out)])
+    assert rc == 0 and not dist.is_initialized()
+    (first, last), = [tuple(map(float, m.groups())) for r in caplog.records
+                      if (m := re.fullmatch(r"loss: (\S+) -> (\S+)", r.getMessage()))]
+    assert last < first
+    assert vio.load_checkpoint(out)["volume"].shape == (16, 16, 16)
+
+
+def test_cli_benchmark_scaling_writes_the_table(tmp_path):
+    """``benchmark --scaling``: the JAX package's scaling rows and CSV
+    columns, over this process's one device."""
+    out = tmp_path / "scaling.csv"
+    assert cli.main(["benchmark", "--scaling", *SMALL, "--renderer", "slab", "--trials", "2", "--seconds", "0.01",
+                     "--output", str(out)]) == 0
+    fields, rows = _rows(out)
+    assert fields == jharness.CSV_FIELDS + ["devices", "rays_per_s", "scaling_efficiency"]
+    assert set(jharness.SCALING_CSV_FIELDS) <= set(fields)
+    (row,) = rows
+    assert row["devices"] == "1" and float(row["scaling_efficiency"]) == 1.0 and float(row["rays_per_s"]) > 0
+
+
+def test_cli_view_parser_and_serve(monkeypatch):
+    """``view`` takes the JAX package's ``--host``, ``--port`` and
+    ``--screenshot-dir`` and serves the render flags on ``--device``."""
+    seen = {}
+    monkeypatch.setattr(viewer, "serve", lambda *a, **kw: seen.update(args=a, kwargs=kw) or 0)
+    argv = ["view", *SMALL, "--renderer", "ray", "--port", "0", "--host", "0.0.0.0", "--screenshot-dir", "shots"]
+    assert cli.main(argv) == 0
+    scene, params, height, width = seen["args"]
+    assert (height, width, scene.volume.shape) == (16, 16, (16, 16, 16))
+    assert params == cli._params(cli.build_parser().parse_args(argv))
+    assert seen["kwargs"] == dict(host="0.0.0.0", port=0, screenshot_dir="shots", backend="ray",
+                                  device=torch.device("cpu"))
+    mine, theirs = cli.build_parser().parse_args(["view"]), jcli.build_parser().parse_args(["view"])
+    assert (mine.host, mine.port, mine.screenshot_dir) == (theirs.host, theirs.port, theirs.screenshot_dir)
 
 
 @pytest.mark.parametrize("command", ["fit", "benchmark", "run"])
@@ -172,7 +224,8 @@ def test_cli_cuda_device_without_cuda_raises(tmp_path, monkeypatch, command):
 def test_new_modules_never_import_jax():
     code = (
         "import sys, volym_tpu_torch.bench.harness, volym_tpu_torch.optim, volym_tpu_torch.devtools, "
-        "volym_tpu_torch.io, volym_tpu_torch.cli\n"
+        "volym_tpu_torch.io, volym_tpu_torch.cli, volym_tpu_torch.viewer, volym_tpu_torch.parallel.launch, "
+        "volym_tpu_torch.parallel.mesh\n"
         "volym_tpu_torch.cli.build_parser().parse_args(['benchmark'])\n"
         "assert 'jax' not in sys.modules and not any(m.startswith('volym_tpu.') or m == 'volym_tpu' "
         "for m in sys.modules), sorted(m for m in sys.modules if 'jax' in m or m.startswith('volym_tpu.'))\n"

@@ -974,3 +974,165 @@ def test_force_sync_of_a_cuda_frame(scene, device):
     for out in (img, (None, img), {"frame": img}):
         got = harness.force_sync(out)
         assert isinstance(got, float) and got == float(img[0, 0, 0])
+
+
+SHARDED_MODES = {
+    "base": dict(use_gaussian_smoothing=False),
+    "smoothed shaded": dict(use_gaussian_smoothing=True, interpolation="trilinear"),
+    "cone": dict(use_gaussian_smoothing=False, use_importance_rendering=True, use_cone_importance_check=True),
+    "coloring": dict(use_importance_coloring=True),
+}
+
+
+@pytest.mark.parametrize("shards", [1, 4, 7])
+@pytest.mark.parametrize("mode", list(SHARDED_MODES))
+def test_sharded_slab_cuda_equals_single_device(scene3, device, mode, shards):
+    """``render_sharded`` on virtual shards of the card equals the
+    single-device ``slab_cuda`` frame bit for bit (7 shards: 320 rays a
+    shard, not whole rows), with B1 launched once a shard (and B7 under
+    the cone)."""
+    from volym_tpu_torch.parallel import mesh as pmesh
+
+    p = RenderParams(raymarching_step_size=1.0 / SIDE, **SHARDED_MODES[mode])
+    cam = Camera(aspect=W / H, distance=1.3).orbit(30.0, 20.0, 0.0).matrices()
+    want = make_renderer(scene3, p, H, W, backend="slab_cuda", device=device)(cam)
+    before = (slab_march.LAUNCHES, lookahead.CONE_LAUNCHES)
+    got = pmesh.render_sharded(scene3, cam, p, H, W, pmesh.make_mesh([device] * shards), backend="slab_cuda")
+    launched = (slab_march.LAUNCHES - before[0], lookahead.CONE_LAUNCHES - before[1])
+    assert launched == (shards, shards if mode == "cone" else 0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("mode", ["bench", "smoothed camera"])
+def test_sharded_slab_cuda_train_step_matches_single_device(scene, device, mode, shards):
+    """``make_train_step(backend="slab_cuda")`` against autograd through the
+    single-device ``slab_cuda`` render, by the repo's rule."""
+    from volym_tpu_torch.parallel import mesh as pmesh
+
+    if mode == "bench":
+        p = RenderParams(interpolation="trilinear", density_threshold=0.15, raymarching_step_size=1.0 / SIDE,
+                         use_shading=False, use_gaussian_smoothing=False, camera_grads=False)
+    else:
+        p = RenderParams(interpolation="trilinear", raymarching_step_size=1.0 / SIDE, use_shading=False)
+    cam = Camera(aspect=W / H, distance=1.3).orbit(30.0, 20.0, 0.0).matrices()
+    target = make_renderer(scene, p, H, W, backend="slab_cuda", device=device)(cam) * 0.8
+    loss, grads = pmesh.make_train_step(p, H, W, pmesh.make_mesh([device] * shards), backend="slab_cuda",
+                                        camera_matrices=cam)(scene, cam, target)
+    leaves = Scene(*(t.detach().clone().requires_grad_() for t in (scene.volume, scene.importance, scene.tf_lut)))
+    fixed = p.replace(adaptive_stepping=False, u8_volume=False)
+    ref = torch.mean((make_renderer(leaves, fixed, H, W, backend="slab_cuda", device=device,
+                                    differentiable=True)(cam) - target) ** 2)
+    ref.backward()
+    np.testing.assert_allclose(float(loss), float(ref.detach()), rtol=1e-5)
+    parity.check_close(leaves.volume.grad, grads.volume, f"{mode} {shards} d_volume")
+    parity.check_lut_grad(leaves.tf_lut.grad, grads.tf_lut, scene.tf_lut, f"{mode} {shards} d_lut")
+    assert float(grads.volume.abs().max()) > 0 and not bool(grads.importance.any())
+
+
+def test_nccl_world_of_one(scene, device):
+    """A one-rank NCCL group: the sharded frame gathers over NCCL and
+    equals the single-device frame bit for bit; the step, its sums
+    all-reduced over NCCL, equals the same shards' step without a group:
+    the loss bit for bit, the gradients by the repo's rule, since B2 sums
+    them by float atomics whose order varies from run to run
+    (``chip_smoke.py`` phase 11 reruns one step and counts the runs whose
+    gradients' bits differ); an all-reduce over the one rank returns its input bit for bit; the
+    group goes down at the end.  Each check names itself when it fails."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from volym_tpu_torch.parallel import launch
+    from volym_tpu_torch.parallel import mesh as pmesh
+
+    def differ(a, b):
+        return f"max abs difference {float((a.double() - b.double()).abs().max()):.3e}"
+
+    p = RenderParams(use_gaussian_smoothing=False, raymarching_step_size=1.0 / SIDE)
+    cam = Camera(aspect=W / H, distance=1.3).orbit(30.0, 20.0, 0.0).matrices()
+    local = pmesh.make_host_mesh([device] * 2)  # made before the group: no collective
+    try:
+        assert launch.maybe_initialize(True, device="cuda", timeout=timedelta(seconds=120), env={}), \
+            "maybe_initialize brought no group up"
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        assert launch.local_device().type == "cuda", launch.local_device()
+        mesh = pmesh.make_host_mesh([device] * 2)
+        assert mesh.distributed and mesh.shape == (1, 2) and not local.distributed, (mesh, local)
+        want = make_renderer(scene, p, H, W, backend="slab_cuda", device=device)(cam)
+        got = pmesh.render_sharded(scene, cam, p, H, W, mesh, backend="slab_cuda")
+        assert torch.equal(got, want), f"the sharded frame over NCCL: {differ(got, want)}"
+        target = want * 0.8
+        (la, ga), (lb, gb) = (pmesh.make_train_step(p, H, W, m, backend="slab_cuda", camera_matrices=cam)(
+            scene, cam, target) for m in (mesh, local))
+        assert float(ga.volume.abs().max()) > 0, "no volume gradient"
+        assert torch.equal(la, lb), f"the loss over NCCL against no group: {differ(la, lb)}"
+        assert not bool(ga.importance.any()) and not bool(gb.importance.any()), "a nonzero d_importance"
+        parity.check_close(gb.volume, ga.volume, "d_volume over NCCL against no group")
+        parity.check_lut_grad(gb.tf_lut, ga.tf_lut, scene.tf_lut, "d_lut over NCCL against no group")
+        summed = ga.volume.clone()
+        dist.all_reduce(summed)
+        assert torch.equal(summed, ga.volume), f"an all-reduce over one rank: {differ(summed, ga.volume)}"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_viewer_frame_on_the_card(scene, device, tmp_path):
+    """The viewer's default backend on the card, ``slab_cuda``: its /frame is
+    the PNG of the renderer's frame, byte for byte."""
+    import threading
+    import urllib.request
+
+    from volym_tpu_torch import io as vio
+    from volym_tpu_torch import viewer
+
+    p = RenderParams()
+    srv = viewer.make_server(scene, p, H, W, port=0, screenshot_dir=str(tmp_path))
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        host, port = srv.server_address
+        with urllib.request.urlopen(f"http://{host}:{port}/frame?h=30&v=20&dist=1.2", timeout=120) as r:
+            got = r.read()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+    q = {"h": ["30"], "v": ["20"], "dist": ["1.2"]}
+    want = make_renderer(scene, p, H, W, backend="slab_cuda", device=device)(
+        viewer.camera_from_query(q, W / H).matrices())
+    assert got == vio.png_bytes(want)
+
+
+def test_two_nccl_ranks_on_one_card_raise(device, tmp_path):
+    """Two processes of one NCCL group on the same card: each fails with the
+    port's own error (one rank a card), within the timeout."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = ("import sys; from datetime import timedelta; from volym_tpu_torch.parallel import launch\n"
+            "try:\n    launch.maybe_initialize(device='cuda', timeout=timedelta(seconds=60))\n"
+            "except RuntimeError as e:\n    print(e); sys.exit(3)\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, "PYTHONPATH": repo, "CUDA_VISIBLE_DEVICES": str(device.index or 0),
+               "VOLYM_COORDINATOR": f"127.0.0.1:{port}", "VOLYM_NUM_PROCESSES": "2", "VOLYM_PROCESS_ID": str(rank)}
+        procs.append(subprocess.Popen([sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 3 and "one rank a card" in out, out[-2000:]

@@ -1,4 +1,4 @@
-"""Benchmark harness: the reference protocol, plus rays/s.
+"""Benchmark harness: the reference protocol, plus rays/s and scaling.
 
 Counterpart of :mod:`volym_tpu.bench.harness`.  It replicates the
 reference's sweep exactly (``src/main.rs:178-345``): base parameters from
@@ -309,11 +309,70 @@ SCALING_CSV_FIELDS = [
 ]
 
 
-def scaling_table(scene, camera_matrices, params: RenderParams, height: int, width: int, **kwargs) -> list[dict]:
-    """rays/s against the device count (``SCALING_CSV_FIELDS``): it renders
-    through the ray-sharded renderer, which needs
-    ``volym_tpu_torch.parallel``, not ported yet."""
-    raise NotImplementedError("scaling_table needs volym_tpu_torch.parallel, which is not ported yet")
+def scaling_table(
+    scene,
+    camera_matrices,
+    params: RenderParams,
+    height: int,
+    width: int,
+    *,
+    devices=None,
+    device_counts=None,
+    backend: str = "slab_cuda",
+    differentiable: bool = False,
+    num_trials: int = NUM_TRIALS,
+    seconds: float = SECS_PER_TRIAL,
+    log=print,
+) -> list[dict]:
+    """rays/s against the shard count (``SCALING_CSV_FIELDS``), with
+    :class:`TrialResults` stats.
+
+    Renders through the ray-sharded renderer
+    (:func:`volym_tpu_torch.parallel.mesh.render_sharded`) on meshes of the
+    first n of ``devices`` (default every CUDA device of this process; a
+    device listed more than once is a virtual shard) for n in
+    ``device_counts`` (default 1, 2, 4, ... up to their number), keeping
+    the n that divide ``H W``.  A row's ``devices`` is its mesh's shard
+    count and its efficiency ``rays_per_s / (devices x rays/s a shard at
+    the first row)``."""
+    from volym_tpu_torch.parallel import mesh as pmesh
+
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("scaling_table's default devices are the CUDA devices; torch.cuda.is_available() is "
+                               "False (pass devices to run elsewhere)")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if device_counts is None:
+        device_counts = [n for n in (1, 2, 4, 8, 16, 32, 64) if n <= len(devices)]
+    device_counts = [n for n in device_counts if (height * width) % n == 0]
+    rows = []
+    base_per_device = None
+    for n in device_counts:
+        mesh = pmesh.make_mesh(devices[:n])
+
+        def frame():
+            return pmesh.render_sharded(
+                scene, camera_matrices, params, height, width, mesh,
+                differentiable=differentiable, backend=backend,
+            )
+
+        tr = TrialResults()
+        force_sync(frame())  # the first call outside the timed region
+        for _ in range(num_trials):
+            frames, dur = run_trial(frame, seconds=seconds)
+            tr.add_trial(frames, dur)
+        stats = tr.stats()
+        rate = stats["avg_fps"] * height * width
+        if base_per_device is None:
+            base_per_device = rate / mesh.size
+        eff = rate / (base_per_device * mesh.size)
+        rows.append({"devices": mesh.size, **stats, "rays_per_s": rate, "scaling_efficiency": eff})
+        log(
+            f"scaling n={mesh.size}: {rate:,.0f} rays/s, efficiency {eff:.2f}, "
+            f"fps {stats['avg_fps']:.2f} +- {stats['std_dev_fps']:.2f}"
+        )
+    return rows
 
 
 def write_csv(rows: list[dict], path="benchmark_results.csv") -> None:

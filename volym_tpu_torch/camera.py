@@ -1,4 +1,4 @@
-"""Orbit camera and view/projection math.
+"""Orbit camera, its input controller and view/projection math.
 
 Counterpart of :mod:`volym_tpu.camera`.  The orbit state and the 4x4
 matrices are host-side numpy, computed exactly as the JAX package computes
@@ -156,3 +156,29 @@ def camera_matrices(position, target, up, fovy, aspect, znear, zfar, device="cpu
         inverse_view_proj=t(ivp),
         position=t(position),
     )
+
+
+@dataclass
+class CameraController:
+    """Accumulates input deltas, applied once per frame then reset
+    (reference ``src/camera.rs:76-117``)."""
+
+    sensitivity: float = 0.2
+    zoom_sensitivity: float = 0.2
+    rotate_horizontal: float = 0.0
+    rotate_vertical: float = 0.0
+    scroll: float = 0.0
+
+    def process_mouse(self, dx: float, dy: float) -> None:
+        self.rotate_horizontal = -dx * self.sensitivity
+        self.rotate_vertical = -dy * self.sensitivity
+
+    def process_scroll(self, delta: float) -> None:
+        self.scroll = -delta * self.zoom_sensitivity
+
+    def update_camera(self, camera: Camera) -> Camera:
+        cam = camera.orbit(self.rotate_horizontal, self.rotate_vertical, self.scroll)
+        self.rotate_horizontal = 0.0
+        self.rotate_vertical = 0.0
+        self.scroll = 0.0
+        return cam

@@ -3,6 +3,7 @@
     python -m volym_tpu_torch run [simple]   render an orbit sweep, log FPS, save PNG
     python -m volym_tpu_torch benchmark      the reference sweep -> CSV
     python -m volym_tpu_torch screenshot     single frame -> PNG
+    python -m volym_tpu_torch view           interactive browser viewer
     python -m volym_tpu_torch fit            inverse-rendering demo -> .npz
     python -m volym_tpu_torch devtools ...   NRRD -> segments.json + raw
 
@@ -22,9 +23,16 @@ sample past the threshold.  ``--profile DIR`` writes a ``torch.profiler``
 trace of ``run``'s frames or ``benchmark``'s sweep to ``DIR/trace.json``;
 ``run --live-sweep`` with ``--renderer ray`` changes the threshold and the
 step size every frame.  ``fit`` renders its target with the golden t-step
-march and fits the volume and the LUT through the replay backward.
-``--distributed`` and ``benchmark --scaling`` are not ported yet and raise
-``NotImplementedError``; the viewer (``view``) is not ported.
+march and fits the volume and the LUT through the replay backward;
+``fit --distributed`` fits through the ray-sharded train step of
+``--renderer`` (:func:`volym_tpu_torch.parallel.launch.fit_distributed`).
+``--distributed`` brings up the process group first
+(:func:`volym_tpu_torch.parallel.launch.maybe_initialize`: NCCL on a CUDA
+``--device``, gloo on the CPU, from the ``VOLYM_*`` or torchrun variables,
+else a world of one); only rank 0 writes the checkpoint.  ``benchmark
+--scaling`` writes rays/s against the shard count to
+scaling_results.csv.  ``view`` serves the viewer
+(:mod:`volym_tpu_torch.viewer`) at ``--host``:``--port``.
 """
 
 from __future__ import annotations
@@ -177,14 +185,29 @@ def cmd_benchmark(args) -> int:
     """The reference sweep (``harness.benchmark_all``) from the preset
     ``BENCHMARK_PARAMS``: only ``--renderer``, ``--device``, the scene flags
     and ``--width``/``--height`` reach it.  -> ``--output`` or
-    benchmark_results.csv."""
+    benchmark_results.csv.  With ``--scaling``, ``harness.scaling_table``
+    of the render flags over this process's devices -> ``--output`` or
+    scaling_results.csv."""
+    import torch
+
     from volym_tpu_torch.bench import harness
     from volym_tpu_torch.render.renderer import make_renderer
 
-    if args.scaling:
-        raise NotImplementedError("benchmark --scaling needs volym_tpu_torch.parallel, which is not ported yet")
     scene = _default_scene(args)
     m = _camera(args).matrices()
+    if args.scaling:
+        # the devices of this process: every card, or the CPU
+        device = _device(args)
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())] if device.type == "cuda"
+                   else [device])
+        rows = harness.scaling_table(
+            scene, m, _params(args), args.height, args.width, devices=devices, backend=args.renderer,
+            num_trials=args.trials, seconds=args.seconds, log=log.info,
+        )
+        out = args.output or "scaling_results.csv"
+        harness.write_csv(rows, out)
+        log.info("wrote %s (%d rows)", out, len(rows))
+        return 0
 
     def render_factory(params):
         r = make_renderer(scene, params, args.height, args.width, backend=args.renderer, device=args.device)
@@ -221,7 +244,9 @@ def cmd_benchmark(args) -> int:
 def cmd_fit(args) -> int:
     """Fit the volume and the LUT, from a flat volume, to the golden render
     of the scene: ``--frames`` Adam steps, the loss logged every 10;
-    ``volume`` and ``tf_lut`` -> ``--output`` or fitted_scene.npz."""
+    ``volume`` and ``tf_lut`` -> ``--output`` or fitted_scene.npz.  With
+    ``--distributed`` the steps are ``launch.fit_distributed``'s on the
+    ``--renderer`` backend, and only the coordinator writes."""
     import torch
 
     from volym_tpu_torch import io as vio
@@ -248,10 +273,30 @@ def cmd_fit(args) -> int:
         if i % 10 == 0:
             log.info("fit step %d loss %.6f", i, loss)
 
-    res = fit_scene(init, cm, target, params, steps=args.frames, callback=cb)
-    log.info("loss: %.6f -> %.6f", res.losses[0], res.losses[-1])
-    vio.save_checkpoint(args.output or "fitted_scene.npz", {"volume": res.scene.volume, "tf_lut": res.scene.tf_lut})
+    if args.distributed:
+        from volym_tpu_torch.parallel import launch
+
+        fitted, losses = launch.fit_distributed(init, cm, target, params, steps=args.frames, backend=args.renderer,
+                                                callback=cb)
+        writes = launch.is_coordinator()
+    else:
+        res = fit_scene(init, cm, target, params, steps=args.frames, callback=cb)
+        fitted, losses, writes = res.scene, res.losses, True
+    log.info("loss: %.6f -> %.6f", losses[0], losses[-1])
+    if writes:
+        vio.save_checkpoint(args.output or "fitted_scene.npz", {"volume": fitted.volume, "tf_lut": fitted.tf_lut})
     return 0
+
+
+def cmd_view(args) -> int:
+    """The interactive viewer (:mod:`volym_tpu_torch.viewer`): a browser
+    page whose drags, wheel and panel drive renders with ``--renderer`` on
+    ``--device``."""
+    from volym_tpu_torch import viewer
+
+    device = _device(args)
+    return viewer.serve(_default_scene(args), _params(args), args.height, args.width, host=args.host,
+                        port=args.port, screenshot_dir=args.screenshot_dir, backend=args.renderer, device=device)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -306,7 +351,11 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--device", default="cuda", help="torch device to render on")
         p.add_argument("--frames", type=int, default=100)
         p.add_argument("--output")
-        p.add_argument("--distributed", action="store_true", help="multi-host run (not ported yet)")
+        p.add_argument(
+            "--distributed", action="store_true",
+            help="bring up the process group from the VOLYM_* or torchrun env vars (see "
+            "volym_tpu_torch/parallel/launch.py); fit trains on the ray-sharded step",
+        )
         p.add_argument(
             "--profile", metavar="DIR",
             help="write a torch.profiler trace of run's frames or benchmark's sweep to DIR/trace.json",
@@ -326,7 +375,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_bench.add_argument("--sweep-steps", type=float, nargs="*")
     p_bench.add_argument(
         "--scaling", action="store_true",
-        help="rays/s vs device count table instead of the parameter sweep (not ported yet)",
+        help="rays/s vs device count table instead of the parameter sweep",
     )
     p_bench.add_argument(
         "--step-histogram", action="store_true",
@@ -334,6 +383,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p_shot = sub.add_parser("screenshot", help="single frame -> PNG")
     common(p_shot)
+    p_view = sub.add_parser("view", help="interactive browser viewer (live orbit + panel)")
+    common(p_view)
+    p_view.add_argument("--host", default="127.0.0.1")
+    p_view.add_argument("--port", type=int, default=8000)
+    p_view.add_argument("--screenshot-dir", default=".")
     p_fit = sub.add_parser("fit", help="inverse-rendering demo")
     common(p_fit)
     p_dev = sub.add_parser("devtools", help="NRRD -> segments.json + raw")
@@ -349,15 +403,25 @@ def main(argv=None) -> int:
         # reference default: `volym` == `volym run simple`
         args = build_parser().parse_args(["run", *(argv or [])])
     _setup_logging(args.debug)
-    if getattr(args, "distributed", False):
-        raise NotImplementedError("--distributed is not ported to volym_tpu_torch yet")
-    if args.command == "devtools":
-        from volym_tpu_torch import devtools
+    # the process group comes up before any other device use, and goes down
+    # with the command that brought it up
+    from volym_tpu_torch.parallel import launch
 
-        devtools.convert(args.input, args.json_out, args.raw_out)
-        return 0
-    cmd = {"run": cmd_run, "benchmark": cmd_benchmark, "screenshot": cmd_screenshot, "fit": cmd_fit}
-    return cmd[args.command](args)
+    started = launch.maybe_initialize(getattr(args, "distributed", False), device=getattr(args, "device", "cuda"))
+    try:
+        if args.command == "devtools":
+            from volym_tpu_torch import devtools
+
+            devtools.convert(args.input, args.json_out, args.raw_out)
+            return 0
+        cmd = {"run": cmd_run, "benchmark": cmd_benchmark, "screenshot": cmd_screenshot, "fit": cmd_fit,
+               "view": cmd_view}
+        return cmd[args.command](args)
+    finally:
+        if started:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

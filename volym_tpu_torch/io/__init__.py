@@ -37,8 +37,8 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
 
 
-def write_png(path, img) -> None:
-    """Write an (H, W), (H, W, 3) or (H, W, 4) image as an 8-bit PNG."""
+def png_bytes(img) -> bytes:
+    """An (H, W), (H, W, 3) or (H, W, 4) image as the bytes of an 8-bit PNG."""
     arr = to_uint8_image(img)
     if arr.ndim == 2:
         arr = arr[:, :, None]
@@ -46,12 +46,17 @@ def write_png(path, img) -> None:
     color_type = {1: 0, 3: 2, 4: 6}[c]  # greyscale, RGB, RGBA
     # every scanline starts with filter type 0 (none)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)], axis=1)
-    Path(path).write_bytes(
+    return (
         b"\x89PNG\r\n\x1a\n"
         + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
         + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
         + _chunk(b"IEND", b"")
     )
+
+
+def write_png(path, img) -> None:
+    """Write an (H, W), (H, W, 3) or (H, W, 4) image as an 8-bit PNG."""
+    Path(path).write_bytes(png_bytes(img))
 
 
 def save_screenshot(img, directory=".") -> Path:

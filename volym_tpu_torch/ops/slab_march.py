@@ -395,9 +395,11 @@ def march(feats, vol_perm, lut, sign, params, grad_perm=None, u8=False, emit_den
     return march_cuda(feats, vol_perm, lut, sign, params, grad_perm, u8, emit_density, gate, imp_perm)
 
 
-def _layout(scene, camera_matrices, params: RenderParams):
-    """(major axis, march sign, sample-plane count, u8 domain) of a frame."""
-    major, sign = slab_mod.dominant_axis(camera_matrices)
+def _layout(scene, camera_matrices, params: RenderParams, axis=None):
+    """(major axis, march sign, sample-plane count, u8 domain) of a frame;
+    ``axis``: the (major axis, march sign) to march along in place of the
+    camera's own (:func:`slab.dominant_axis`)."""
+    major, sign = slab_mod.dominant_axis(camera_matrices) if axis is None else axis
     n = scene.volume.shape[0]
     planes = slab_mod.resolve_planes(params, n)
     return major, sign, planes, u8_active(params, planes, n)
@@ -410,12 +412,21 @@ def _gradient_perm(volume: torch.Tensor, major: int, planes: int) -> torch.Tenso
     ).contiguous()
 
 
-def _features(camera_matrices, device, height, width, planes, major, sign, n_plane) -> torch.Tensor:
-    """The (N_FEATURES, H, W) per-ray table of a frame."""
-    origin, dirs = rays_mod.generate_rays(camera_matrices.to(device), height, width)
+def _features(camera_matrices, ndc, shape, planes, major, sign, n_plane) -> torch.Tensor:
+    """The (N_FEATURES, *shape) per-ray table of the rays through the NDC
+    points ``ndc`` (R, 2): a frame's :func:`rays.pixel_ndc` with ``shape``
+    (H, W), or a shard's rows of it, laid out as (rows, R / rows)."""
+    origin, dirs = rays_mod.rays_from_ndc(camera_matrices, ndc)
     entry, exit_ = rays_mod.ray_box_intersection(origin, dirs)
     feats = features_from_rays(origin, dirs, entry, exit_, planes, major, sign, n_plane=n_plane)
-    return feats.reshape(N_FEATURES, height, width)
+    return feats.reshape(N_FEATURES, *shape)
+
+
+def _cone_features(camera_matrices, ndc, shape, planes, major, sign, n_plane) -> torch.Tensor:
+    """The (CONE_FEATURES, *shape) cone table of the rays through ``ndc``
+    (as :func:`_features`)."""
+    origin, dirs = rays_mod.rays_from_ndc(camera_matrices, ndc)
+    return cone_features_from_rays(origin, dirs, planes, major, sign, n_plane=n_plane).reshape(CONE_FEATURES, *shape)
 
 
 def lookahead_active(params: RenderParams) -> bool:
@@ -434,18 +445,17 @@ def importance_perm(importance: torch.Tensor, major: int, planes: int) -> torch.
 
 
 def lookahead_inputs(scene, camera_matrices, params: RenderParams, height: int, width: int):
-    """The gate's inputs besides the per-ray table: ``(cone_feats, levels)``,
-    the (CONE_FEATURES, H, W) cone table (None for the straight variant)
-    and the uint8 importance levels of :func:`importance_perm`
-    (``slab_kernel.py:2329-2364``)."""
-    major, sign, planes, _ = _layout(scene, camera_matrices, params)
-    imp_perm = importance_perm(scene.importance, major, planes)
+    """The gate's inputs besides the per-ray table, as :func:`render` builds
+    them for a frame under look-ahead: ``(cone_feats, levels)``, the
+    (CONE_FEATURES, H, W) cone table (None for the straight variant) and
+    the uint8 importance levels of :func:`grids` (``slab_kernel.py:2329-2364``)."""
+    cm = camera_matrices.to(scene.device)
+    g = grids(scene, cm, params)
     cone_feats = None
     if params.use_cone_importance_check:
-        origin, dirs = rays_mod.generate_rays(camera_matrices.to(scene.device), height, width)
-        cone_feats = cone_features_from_rays(origin, dirs, planes, major, sign, n_plane=imp_perm.shape[1])
-        cone_feats = cone_feats.reshape(CONE_FEATURES, height, width)
-    return cone_feats, slab_mod.importance_levels(imp_perm)
+        cone_feats = _cone_features(cm, rays_mod.pixel_ndc(height, width, scene.device), (height, width), g.planes,
+                                    g.major, g.sign, g.n_plane)
+    return cone_feats, g.levels
 
 
 def quantize_u8(volume: torch.Tensor) -> torch.Tensor:
@@ -463,20 +473,83 @@ def u8_grid(scene) -> torch.Tensor:
     return grid if grid is not None else quantize_u8(scene.volume.detach())
 
 
+@dataclass(frozen=True)
+class Grids:
+    """The per-scene half of a slab frame, which every ray of it marches
+    (every shard of a sharded frame, :mod:`volym_tpu_torch.parallel.mesh`):
+    the layout (:func:`_layout`), the permuted grid as marched, the LUT, the
+    permuted gradient field when shaded, the permuted importance under
+    coloring and the uint8 importance levels under look-ahead."""
+
+    major: int
+    sign: int
+    planes: int
+    u8: bool
+    vol_perm: torch.Tensor
+    lut: torch.Tensor
+    grad_perm: torch.Tensor | None
+    imp_perm: torch.Tensor | None
+    levels: torch.Tensor | None
+
+    @property
+    def n_plane(self) -> int:
+        """The rows of a permuted slice (``ray_affine``'s ``n_plane``)."""
+        return self.vol_perm.shape[1]
+
+
+def grids(scene, camera_matrices, params: RenderParams, differentiable: bool = False, axis=None) -> Grids:
+    """The :class:`Grids` of a frame of ``scene`` on its device.  Forward
+    (``differentiable`` False): camera cotangents are moot, so
+    ``camera_grads`` does not veto the u8 stream (``slab_kernel.render``
+    clears it the same way), which reads :func:`u8_grid`.  Differentiable:
+    the f32 volume's permute and plane resample, the gradient field and,
+    under coloring, the importance stay in the autograd graph
+    (:class:`DiffMarch` quantises the u8 stream itself); the look-ahead's
+    levels are built without autograd.  ``axis``: as in :func:`_layout`."""
+    if differentiable:
+        major, sign, planes, u8 = _layout(scene, camera_matrices, params, axis)
+        vol_perm = slab_mod.slab_resample(slab_mod.permute_volume(scene.volume, major), planes)
+        lut = scene.tf_lut
+    else:
+        major, sign, planes, u8 = _layout(scene, camera_matrices, params.replace(camera_grads=False), axis)
+        if u8:
+            vol_perm = slab_mod.permute_volume(u8_grid(scene), major)
+        else:
+            vol_perm = slab_mod.slab_resample(slab_mod.permute_volume(scene.volume, major), planes)
+        vol_perm, lut = vol_perm.contiguous(), scene.tf_lut.contiguous()
+    grad_perm = _gradient_perm(scene.volume, major, planes) if params.use_shading else None
+    imp_perm = levels = None
+    if params.use_importance_coloring:
+        imp_perm = importance_perm(scene.importance, major, planes).contiguous()
+    if lookahead_active(params):
+        with torch.no_grad():
+            levels = slab_mod.importance_levels(importance_perm(scene.importance, major, planes))
+    return Grids(major, sign, planes, u8, vol_perm, lut, grad_perm, imp_perm, levels)
+
+
 def prepare(scene, camera_matrices, params: RenderParams, height: int, width: int):
     """The forward march's inputs for one frame: ``(feats, vol_perm, lut,
-    sign, grad_perm, u8)`` on the scene's device.  Forward only: camera
-    cotangents are moot, so ``camera_grads`` does not veto the u8 stream
-    (``slab_kernel.render`` clears it the same way).  The u8 stream reads
-    :func:`u8_grid`."""
-    major, sign, planes, u8 = _layout(scene, camera_matrices, params.replace(camera_grads=False))
-    if u8:
-        vol_perm = slab_mod.permute_volume(u8_grid(scene), major)
-    else:
-        vol_perm = slab_mod.slab_resample(slab_mod.permute_volume(scene.volume, major), planes)
-    grad_perm = _gradient_perm(scene.volume, major, planes) if params.use_shading else None
-    feats = _features(camera_matrices, scene.device, height, width, planes, major, sign, vol_perm.shape[1])
-    return feats, vol_perm.contiguous(), scene.tf_lut.contiguous(), sign, grad_perm, u8
+    sign, grad_perm, u8)`` on the scene's device (:func:`grids`)."""
+    cm = camera_matrices.to(scene.device)
+    g = grids(scene, cm, params)
+    feats = _features(cm, rays_mod.pixel_ndc(height, width, scene.device), (height, width), g.planes, g.major,
+                      g.sign, g.n_plane)
+    return feats, g.vol_perm, g.lut, g.sign, g.grad_perm, g.u8
+
+
+def render_rays(g: Grids, camera_matrices, params: RenderParams, ndc, shape, march_fn=march,
+                gate_fn=lookahead.gate) -> torch.Tensor:
+    """The slab march of the rays through the NDC points ``ndc`` (R, 2) on
+    the grids ``g`` -> (*shape, 4), ``shape`` the rays' (rows, columns) in
+    the per-ray table (:func:`_features`); ``camera_matrices`` on the grids'
+    device.  As :func:`render` does for a whole frame."""
+    feats = _features(camera_matrices, ndc, shape, g.planes, g.major, g.sign, g.n_plane)
+    gate = None
+    if lookahead_active(params):
+        cone_feats = (_cone_features(camera_matrices, ndc, shape, g.planes, g.major, g.sign, g.n_plane)
+                      if params.use_cone_importance_check else None)
+        gate = gate_fn(feats, cone_feats, g.levels, g.sign, params.subtexel_bits)
+    return march_fn(feats, g.vol_perm, g.lut, g.sign, params, g.grad_perm, u8=g.u8, gate=gate, imp_perm=g.imp_perm)
 
 
 def render(
@@ -490,16 +563,9 @@ def render(
     has no effect here, as on the JAX package's slab paths.  Importance
     coloring samples :func:`importance_perm`; first-hit is
     ``use_opacity=False`` without coloring."""
-    feats, vol_perm, lut, sign, grad_perm, u8 = prepare(scene, camera_matrices, params, height, width)
-    gate = None
-    if lookahead_active(params):
-        cone_feats, levels = lookahead_inputs(scene, camera_matrices, params, height, width)
-        gate = gate_fn(feats, cone_feats, levels, sign, params.subtexel_bits)
-    imp_perm = None
-    if params.use_importance_coloring:
-        major, _, planes, _ = _layout(scene, camera_matrices, params)
-        imp_perm = importance_perm(scene.importance, major, planes).contiguous()
-    return march_fn(feats, vol_perm, lut, sign, params, grad_perm, u8=u8, gate=gate, imp_perm=imp_perm)
+    cm = camera_matrices.to(scene.device)
+    return render_rays(grids(scene, cm, params), cm, params, rays_mod.pixel_ndc(height, width, scene.device),
+                       (height, width), march_fn, gate_fn)
 
 
 def check_differentiable(params: RenderParams) -> None:
@@ -648,19 +714,30 @@ def render_diff(
     ``scene.volume_u8`` is not read.
     """
     check_differentiable(params)
-    major, sign, planes, u8 = _layout(scene, camera_matrices, params)
-    vol_perm = slab_mod.slab_resample(slab_mod.permute_volume(scene.volume, major), planes)
-    grad_perm = _gradient_perm(scene.volume, major, planes) if params.use_shading else None
+    cm = camera_matrices.to(scene.device)
+    return render_rays_diff(
+        grids(scene, cm, params, differentiable=True), cm, params, rays_mod.pixel_ndc(height, width, scene.device),
+        (height, width), march_fn, replay_fn, scatter_fn, feats_grad_fn, gate_fn,
+    )
+
+
+def render_rays_diff(
+    g: Grids, camera_matrices, params: RenderParams, ndc, shape, march_fn=march, replay_fn=slab_replay.replay,
+    scatter_fn=voxel_grad.smooth_scatter, feats_grad_fn=feats_grad.feats_grad, gate_fn=lookahead.gate,
+) -> torch.Tensor:
+    """The differentiable slab march of the rays through ``ndc`` on the
+    differentiable grids ``g`` (:func:`grids`) -> (*shape, 4), as
+    :func:`render_diff` does for a whole frame: with ``camera_grads`` the
+    per-ray table is built with autograd on, the gate without."""
     with torch.set_grad_enabled(params.camera_grads and torch.is_grad_enabled()):
-        feats = _features(camera_matrices, scene.device, height, width, planes, major, sign, vol_perm.shape[1])
-    gate = imp_perm = None
+        feats = _features(camera_matrices, ndc, shape, g.planes, g.major, g.sign, g.n_plane)
+    gate = None
     if lookahead_active(params):
         with torch.no_grad():
-            cone_feats, levels = lookahead_inputs(scene, camera_matrices, params, height, width)
-            gate = gate_fn(feats.detach(), cone_feats, levels, sign, params.subtexel_bits)
-    if params.use_importance_coloring:
-        imp_perm = importance_perm(scene.importance, major, planes).contiguous()
+            cone_feats = (_cone_features(camera_matrices, ndc, shape, g.planes, g.major, g.sign, g.n_plane)
+                          if params.use_cone_importance_check else None)
+            gate = gate_fn(feats.detach(), cone_feats, g.levels, g.sign, params.subtexel_bits)
     return DiffMarch.apply(
-        vol_perm, scene.tf_lut, grad_perm, feats, imp_perm, gate, sign, params, u8, march_fn, replay_fn, scatter_fn,
-        feats_grad_fn,
+        g.vol_perm, g.lut, g.grad_perm, feats, g.imp_perm, gate, g.sign, params, g.u8, march_fn, replay_fn,
+        scatter_fn, feats_grad_fn,
     )

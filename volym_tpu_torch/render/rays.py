@@ -81,11 +81,19 @@ def norm3(v: torch.Tensor) -> torch.Tensor:
     return sqrt_rn(v[:, 0:1] * v[:, 0:1] + v[:, 1:2] * v[:, 1:2] + v[:, 2:3] * v[:, 2:3])
 
 
-def generate_rays(camera_matrices, height: int, width: int):
-    """(origin (3,), unit directions (H*W, 3)) of the pinhole camera."""
-    pos = unproject_ndc(camera_matrices, pixel_ndc(height, width, camera_matrices.position.device))
+def rays_from_ndc(camera_matrices, ndc: torch.Tensor):
+    """(origin (3,), unit directions (R, 3)) of the pinhole camera's rays
+    through the NDC points ``ndc`` (R, 2): ray by ray the values of
+    :func:`generate_rays`, whose rays they are for ``pixel_ndc``'s rows, so
+    a shard of a frame builds only its own rays."""
+    pos = unproject_ndc(camera_matrices, ndc)
     d = pos - camera_matrices.position[None, :]
     return camera_matrices.position, d / norm3(d)
+
+
+def generate_rays(camera_matrices, height: int, width: int):
+    """(origin (3,), unit directions (H*W, 3)) of the pinhole camera."""
+    return rays_from_ndc(camera_matrices, pixel_ndc(height, width, camera_matrices.position.device))
 
 
 def ray_box_intersection(origin: torch.Tensor, directions: torch.Tensor):

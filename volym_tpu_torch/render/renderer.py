@@ -19,6 +19,22 @@ from volym_tpu_torch.scene import Scene
 BACKENDS = ("slab", "slab_cuda", "ray")
 
 
+def slab_functions(backend: str, devices) -> tuple:
+    """``(march_fn, replay_fn, scatter_fn, feats_grad_fn, gate_fn)`` of a
+    slab backend on ``devices``: "slab_cuda" the CUDA kernels' wrappers,
+    which need CUDA devices (no fallback), "slab" their plain versions."""
+    if backend == "slab_cuda":
+        for device in devices:
+            if torch.device(device).type != "cuda":
+                raise RuntimeError(f"backend 'slab_cuda' renders on a CUDA device, got {device}")
+        if not torch.cuda.is_available():
+            raise RuntimeError("backend 'slab_cuda' needs CUDA, and torch.cuda.is_available() is False")
+        return slab_march.march, slab_replay.replay, voxel_grad.smooth_scatter, feats_grad.feats_grad, lookahead.gate
+    if backend == "slab":
+        return slab.march_slabs, slab.replay_slabs, slab.smooth_voxel_grad, slab.feats_grad, slab.lookahead_gate
+    raise ValueError(f"{backend!r} is not a slab backend")
+
+
 def make_renderer(
     scene: Scene,
     params: RenderParams,
@@ -27,6 +43,7 @@ def make_renderer(
     backend: str = "slab_cuda",
     device="cuda",
     differentiable: bool = False,
+    mesh=None,
 ) -> Callable:
     """Returns ``render(camera_matrices) -> (H, W, 4)`` float32 tensor on
     ``device``.
@@ -58,11 +75,22 @@ def make_renderer(
     colours by importance, and differentiable carries d_importance to
     ``scene.importance``.  First-hit (``use_opacity=False``) renders but is
     not differentiable: ``NotImplementedError``, as in the JAX package.
+    ``mesh``: shard the rays over a :class:`volym_tpu_torch.parallel.mesh.Mesh`
+    (:func:`~volym_tpu_torch.parallel.mesh.render_sharded`, any backend); its
+    devices render and ``device`` is not read.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown renderer backend {backend!r}; choose from {BACKENDS}")
     if differentiable:
         slab_march.check_differentiable(params)
+    if mesh is not None:
+        from volym_tpu_torch.parallel.mesh import render_sharded
+
+        def render(camera_matrices) -> torch.Tensor:
+            return render_sharded(scene, camera_matrices, params, height, width, mesh,
+                                  differentiable=differentiable, backend=backend)
+
+        return render
     device = torch.device(device)
     if backend == "ray":
         # no fallback: a CUDA device without CUDA raises
@@ -75,16 +103,7 @@ def make_renderer(
             return march(scene, camera_matrices.to(device), params, height, width)
 
         return render
-    if backend == "slab_cuda":
-        if device.type != "cuda":
-            raise RuntimeError(f"backend 'slab_cuda' renders on a CUDA device, got {device}")
-        if not torch.cuda.is_available():
-            raise RuntimeError("backend 'slab_cuda' needs CUDA, and torch.cuda.is_available() is False")
-        # CUDA tensors: the kernels
-        fns = slab_march.march, slab_replay.replay, voxel_grad.smooth_scatter, feats_grad.feats_grad, lookahead.gate
-    else:
-        fns = slab.march_slabs, slab.replay_slabs, slab.smooth_voxel_grad, slab.feats_grad, slab.lookahead_gate
-    march_fn, replay_fn, scatter_fn, feats_grad_fn, gate_fn = fns
+    march_fn, replay_fn, scatter_fn, feats_grad_fn, gate_fn = slab_functions(backend, [device])
     scene = scene.to(device)
 
     if differentiable:

@@ -1,7 +1,9 @@
 """Transfer function: control points -> RGBA lookup table.
 
-The LUT bake stays numpy (as in :mod:`volym_tpu.transfer_function`);
-:func:`lut_sample`, the per-sample lookup, is torch.
+The LUT bake, the host-side lookup :meth:`TransferFunction.get`,
+:func:`quantize_lut` and :func:`save_png` stay numpy (as in
+:mod:`volym_tpu.transfer_function`); :func:`lut_sample`, the per-sample
+lookup, is torch.
 """
 
 from __future__ import annotations
@@ -69,6 +71,33 @@ class TransferFunction:
             fp = np.array([p.color[3] for p in self.alpha_points], np.float32)
             lut[sel, 3] = np.interp(x[sel], xp, fp)
         return lut
+
+    def get(self, value: float) -> np.ndarray:
+        """Host-side LUT lookup with linear interpolation
+        (reference ``src/transfer_function.rs:127-144``)."""
+        lut = self.build_lut()
+        idx = np.clip(value * self.max_density, 0.0, float(self.max_density))
+        i0 = int(np.floor(idx))
+        i1 = min(i0 + 1, self.max_density)
+        t = idx - i0
+        return lut[i0] * (1.0 - t) + lut[i1] * t
+
+
+def quantize_lut(lut: np.ndarray) -> np.ndarray:
+    """8-bit quantisation as done on GPU upload: truncate ``v*255`` to u8
+    (``src/gpu_resources/transfer_function.rs:60-69``), back to float."""
+    return (np.clip(lut * 255.0, 0, 255).astype(np.uint8)).astype(np.float32) / 255.0
+
+
+def save_png(tf: TransferFunction, path) -> None:
+    """Save the LUT as a 1-pixel-tall PNG strip
+    (reference ``src/transfer_function.rs:146-159``), through
+    :func:`volym_tpu_torch.io.write_png`."""
+    from volym_tpu_torch.io import write_png
+
+    # the reference samples get(x / max_density) per pixel: the LUT's rows
+    img = (np.clip(tf.build_lut(), 0, 1) * 255.0).astype(np.uint8)[None, :, :]
+    write_png(path, img)
 
 
 def lut_sample(lut: torch.Tensor, density: torch.Tensor, dscale: float | None = None) -> torch.Tensor:
