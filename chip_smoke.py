@@ -4,9 +4,13 @@
     python3 chip_smoke.py [--parent DIR ...]
 
 ``--parent DIR``: DIR is a checkout of another commit; its march (B1),
-replay (B2) and gate (B6, B7) kernels are built from its sources and timed
-beside this checkout's on the same inputs in every cell and route where
-they run (before / after, one process, one card).  B2 is timed with the
+replay (B2), gate (B6, B7) and fold-and-scatter (B3, B4) kernels are built
+from its sources and timed beside this checkout's on the same inputs in
+every cell and route where they run (before / after, one process, one
+card); where it has its own B5 (``csrc/feats_grad.cu``), the route of its
+plain rows' camera chain (the (N, H, W) folded rows zero-filled, its fold
+writing them, its B5 walking them) is timed part by part beside the fused
+chain, and its camera step's peak memory beside this one's.  B2 is timed with the
 allocations that checkout's wrapper made (a zero-filled ``dd`` before the
 replay wrote only each ray's step range, see ``Before``).  Given more than
 once, every checkout is timed, and the B2 line gives the share of the
@@ -19,10 +23,12 @@ Phases, in order; any failure ends the run with a nonzero exit:
 2. build the CUDA kernels from ``volym_tpu_torch/ops/csrc`` (one nvcc per
    source, all started together): the march (B1), the replay (B2), the
    voxel-gradient scatters (B3 and B4, one source, fused with the smoothing
-   stencil's transpose and without it), the plain rows' camera chain (B5)
-   and the look-ahead gate (B6 straight and B7 cone, one source); print
-   ptxas's registers and spills of every march, replay and gate kernel,
-   and B7's occupancy (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+   stencil's transpose and without it, and the fused fold with the plain
+   rows' camera chain, B5) and the look-ahead gate (B6 straight and B7
+   cone, one source); print ptxas's registers and spills of every march,
+   replay, gate and scatter kernel (the fold with the chain beside it
+   without), and B7's occupancy
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 3. hold the kernels to their plain PyTorch versions on the card: 64^3
    synthetic bonsai, 96x64 rays, every (major axis, sign) view x {nearest,
    trilinear} x {u8 native planes, f32 resampled planes} x {shaded,
@@ -53,9 +59,12 @@ Phases, in order; any failure ends the run with a nonzero exit:
    rays, every view x {nearest, trilinear} x {shaded, unshaded} x
    {smoothing off, on}: B2's camera mode against the plain replay (48,
    d_feats among its outputs, the step range bit for bit) and, under
-   trilinear smoothing, B5 against
-   the plain rows' chain on the folded cotangents (12), with the counts of
-   bit-equal d_feats printed; then the last modes of B1 and B2 on the 64^3
+   trilinear smoothing, the fold with B5 fused in (12) on the plain
+   replay's cotangents: with one chunk of rows its d_feats bit for bit with
+   the plain chain (``slab.feats_grad``) on the fold's own folded rows, with
+   one chunk and with the default chunks by the repo's rule against the
+   plain chain on the plain transpose's rows, with the counts of bit-equal
+   d_feats printed; then the last modes of B1 and B2 on the 64^3
    three-level scene's volume with uniform importance, every view x {u8
    trilinear native, f32 nearest resampled} x {shaded, unshaded} x
    {smoothing off, on}: B1's importance coloring (48) and first-hit (48,
@@ -138,15 +147,25 @@ Phases, in order; any failure ends the run with a nonzero exit:
    smoothed training step with camera gradients (the default
    ``camera_grads=True``; f32 planes, re-sampled replay) in both smoothed
    configurations at 1024x768, a few steps each, with ``inverse_view_proj``
-   and ``position`` as leaves, the plain transpose again made to raise: the
-   launch counts of B1, B2, the fused B3 or B4, and B5 (trilinear only)
-   equal the steps; step 0's image, d_volume, d_lut and camera gradient
-   are checked against the plain step, the folded rows the fused kernel
-   writes for B5 against the plain transpose's; B2 with and without its
-   camera chain (with their bounds), the fused kernel, B5 (with its bound)
-   and the whole step
-   are timed with CUDA events beside the step without camera gradients,
-   the plain transpose once, and a step is profiled;
+   and ``position`` as leaves, the plain transpose and the plain rows'
+   plain chain made to raise on CUDA tensors: the launch counts of B1, B2,
+   the fused B3 or B4, and B5 fused into it (trilinear only: one launch of
+   the fold with the chain) equal the steps; step 0's image, d_volume,
+   d_lut and camera gradient are checked against the plain step; the
+   fused chain's d_feats against the plain chain (bit for bit with one
+   chunk of rows, the default at this size), the folded rows of the fold
+   (asked for in this check only) against the plain transpose's, and the
+   chain on a ``dd`` NaN-filled outside each step range (finite, as on the
+   replay's own ``dd``); B2 with and without its camera chain (with their
+   bounds), the fold without the chain (beside each ``--parent``'s), the
+   fold with the chain (with its bound, and B5's own bound recounted on
+   this run's data: the nonzero folded entries, 4 table rows in and out,
+   the distinct texels its taps touch), each ``--parent``'s route of B5
+   part by part, and the whole step are timed with CUDA events beside the
+   step without camera gradients, the plain transpose and the plain fold
+   and chain once, and a step is profiled; the step's peak memory must lie
+   at least the (N, H, W) folded rows (less 64 MB) below the step whose
+   fold writes them for a B5 that walks them;
 6d. the new modes' training steps at 1024x768 on the teapot through
    ``make_renderer(..., differentiable=True)``: Importance and
    ImportanceCone (the sweep preset) without and with camera gradients, and
@@ -212,9 +231,10 @@ Phases, in order; any failure ends the run with a nonzero exit:
    card: each frame bit for bit with ``make_renderer``'s, B1 (and B7)
    launched once a shard, the sharded and the single-device frames timed by
    CUDA events; (c) ``make_train_step(backend="slab_cuda")`` at 256x256 in
-   ``bench.py``'s config and smoothed with camera gradients, on 1 and 4
-   shards, held to autograd through the single-device ``render_diff`` by
-   the repo's rule, both steps timed; (d) the NCCL ``all_reduce`` of a 67
+   ``bench.py``'s config and smoothed with camera gradients (B3 with B5
+   fused in launched once a shard), on 1 and 4 shards, held to autograd
+   through the single-device ``render_diff`` by the repo's rule, both
+   steps timed; (d) the NCCL ``all_reduce`` of a 67
    MB d_volume timed; (e) ``fit_distributed``, 5 steps: the loss falls;
    (f) the CLI ``fit --distributed`` (the 32^3 sphere at 64x64, the loss
    falls) and ``benchmark --scaling`` (one row); (g) the viewer on
@@ -284,7 +304,7 @@ KERNELS = {
     "lookahead_cone": ("volym_tpu_torch/ops/csrc/lookahead.cu", "volym_tpu/ops/lookahead_kernel.py:262"),
     "voxel_grad": ("volym_tpu_torch/ops/csrc/voxel_grad.cu", "volym_tpu/ops/slab_bwd_kernel.py:1127"),
     "voxel_grad_shaded": ("volym_tpu_torch/ops/csrc/voxel_grad.cu", "volym_tpu/ops/slab_bwd_kernel.py:1198"),
-    "feats_grad": ("volym_tpu_torch/ops/csrc/feats_grad.cu", "volym_tpu/ops/slab_bwd_kernel.py:968"),
+    "feats_grad": ("volym_tpu_torch/ops/csrc/voxel_grad.cu", "volym_tpu/ops/slab_bwd_kernel.py:968"),
 }
 #: the sources to build, one nvcc each: csrc/<name>.cu
 SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()})
@@ -314,10 +334,11 @@ SCATTER_OPS_PER_ENTRY = 30
 FOLD_OPS_PER_RAY = 190
 FOLD_OPS_PER_SOURCE = 55
 FOLD_OPS_PER_TERM = 13
-#: f32 operations of the plain rows' camera chain (csrc/feats_grad.cu) a
-#: nonzero cotangent: the raw coordinates, the clip and the snap, dsample's
-#: fractions and its two contractions, the masks and the four sums
-FEATS_GRAD_OPS_PER_ENTRY = 45
+#: f32 operations of the plain rows' camera chain (csrc/voxel_grad.cu,
+#: CHAIN) a nonzero folded row, beyond the fold's own: the raw coordinates
+#: (4), dsample's fractions and its two contractions (20), the masks (4),
+#: the two products and the four sums (8)
+CHAIN_OPS_PER_ROW = 36
 #: f32 operations of the gate kernels (csrc/lookahead.cu), counted from the
 #: source: every swept step of a live ray (t and the window compares), a
 #: valid step's range test (straight: norm_pos, the quotient, the compare
@@ -390,6 +411,19 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     the memory rate and the operations over the f32 rate, and which."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def peak_mb(fn) -> float:
+    """The most memory (MB) ``fn`` holds on the card at once over what was
+    allocated before it (``torch.cuda.max_memory_allocated``)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 1e6
 
 
 def nbytes(*tensors) -> int:
@@ -581,16 +615,43 @@ def fold_inputs(feats, dd, steps):
                 nonzero_entries=int((dd != 0.0).sum()), n_x_r=n * rays, sources=sources, channels=channels)
 
 
-def fold_bound(feats, steps, folded_rows, out_tensors, stats):
+def fold_bound(feats, steps, folded_rows, out_tensors, stats, extra_bytes=0, extra_ops=0):
     """The fused kernel's bound: the in-range dd, the range table and 5 rows
     of the per-ray table read once, its outputs written once; the
     operations of :func:`fold_inputs` with ``folded_rows``, the nonzero
-    plain rows it scatters."""
+    plain rows it scatters; plus ``extra_bytes`` and ``extra_ops`` (the
+    camera chain's)."""
     rays = feats.shape[1] * feats.shape[2]
-    n_bytes = stats["in_range_entries"] * 4 + nbytes(steps) + 5 * rays * 4 + nbytes(*out_tensors)
+    n_bytes = stats["in_range_entries"] * 4 + nbytes(steps) + 5 * rays * 4 + nbytes(*out_tensors) + extra_bytes
     ops = (stats["rays_with_range"] * FOLD_OPS_PER_RAY + stats["sources"] * (FOLD_OPS_PER_SOURCE + 7 * FOLD_OPS_PER_TERM)
-           + (folded_rows + stats["channels"]) * SCATTER_OPS_PER_ENTRY)
+           + (folded_rows + stats["channels"]) * SCATTER_OPS_PER_ENTRY + extra_ops)
     return bound(n_bytes, ops)
+
+
+def chain_texels(feats, folded, vol_shape, sign, params) -> int:
+    """The distinct texels of the f32 volume that the plain rows' camera
+    chain reads: the 4 taps of ``dsample`` (texel nr and nc absent) at each
+    nonzero folded row's snapped coordinates, in its plane."""
+    import torch
+
+    from volym_tpu_torch.render import slab
+
+    f = feats.reshape(slab.N_FEATURES, -1)
+    n, nr, nc = vol_shape
+    d = folded.reshape(n, -1)
+    touched = torch.zeros(n * nr * nc, dtype=torch.bool, device=folded.device)
+    for j in range(n):
+        nz = torch.nonzero(d[j]).squeeze(1)
+        if not nz.numel():
+            continue
+        k, _, rows_c, cols_c = slab._step_coords(f[:, nz], j, n, nr, nc, sign, params.subtexel_bits)
+        r0, c0 = torch.floor(rows_c).long(), torch.floor(cols_c).long()
+        for dr in (0, 1):
+            for dc in (0, 1):
+                r, c = r0 + dr, c0 + dc
+                inside = (r < nr) & (c < nc)
+                touched[(k * nr + r[inside]) * nc + c[inside]] = True
+    return int(touched.sum())
 
 
 def replay_bounds(feats, vol, lut, grad, out, g, dens, dd, steps, stats, composited, stencils, d_feats_rows=0,
@@ -1217,6 +1278,10 @@ def distributed_path(dev, bonsai, teapot, full_hw=(FULL_H, FULL_W), train_hw=(25
                 before = all_launches()
                 loss, grads = step(bonsai, cm, target)
                 launched = {k: v - before[k] for k, v in all_launches().items() if v != before[k]}
+                # the camera cell: B3's fold with B5 fused in, once a shard
+                fused = (launched.get("voxel_grad", 0), launched.get("feats_grad", 0))
+                if cuda and p.camera_grads and fused != (shards, shards):
+                    raise AssertionError(f"sharded step {name}, {shards} shards: (B3, B5) launches {fused}")
                 if not math.isclose(float(loss), float(ref), rel_tol=1e-5):
                     raise AssertionError(f"sharded step {name}, {shards} shards: loss {float(loss)} vs {float(ref)}")
                 vol = parity.check_close(leaves.volume.grad, grads.volume, f"sharded step {name} d_volume")
@@ -1301,8 +1366,9 @@ def distributed_path(dev, bonsai, teapot, full_hw=(FULL_H, FULL_W), train_hw=(25
     finally:
         dist.destroy_process_group()
     launches = all_launches()  # the main path ends here
-    if cuda and not all(launches[k] > 0 for k in ("slab_march", "slab_replay", "lookahead_cone", "voxel_grad",
-                                                  "feats_grad")):
+    # B5 runs fused into B3's fold: each of its launches is one of B3's
+    if cuda and not (all(launches[k] > 0 for k in ("slab_march", "slab_replay", "lookahead_cone", "voxel_grad",
+                                                   "feats_grad")) and launches["voxel_grad"] >= launches["feats_grad"]):
         raise AssertionError(f"phase 11 launches: {launches}")
     rec["launches"] = launches
     rec["wall_s"] = time.perf_counter() - t_phase
@@ -1310,25 +1376,31 @@ def distributed_path(dev, bonsai, teapot, full_hw=(FULL_H, FULL_W), train_hw=(25
 
 
 class NoTranspose:
-    """Inside it, the plain transpose of the smoothing stencil raises on
-    CUDA tensors: the smoothed backward on the card must run the fused
-    kernel instead."""
+    """Inside it, the plain transpose of the smoothing stencil and the plain
+    rows' plain camera chain raise on CUDA tensors: the smoothed backward on
+    the card must run the fused kernel (with its chain) instead."""
+
+    NAMES = ("smooth_dd_transpose", "feats_grad")
 
     def __enter__(self):
         from volym_tpu_torch.render import slab
 
-        self._slab, self._plain = slab, slab.smooth_dd_transpose
+        self._slab, self._plain = slab, {name: getattr(slab, name) for name in self.NAMES}
 
-        def guard(feats, *args, **kwargs):
-            if feats.device.type == "cuda":
-                raise AssertionError("the plain transpose ran on CUDA tensors on the main path")
-            return self._plain(feats, *args, **kwargs)
+        def guard(name):
+            def fn(feats, *args, **kwargs):
+                if feats.device.type == "cuda":
+                    raise AssertionError(f"the plain {name} ran on CUDA tensors on the main path")
+                return self._plain[name](feats, *args, **kwargs)
+            return fn
 
-        slab.smooth_dd_transpose = guard
+        for name in self.NAMES:
+            setattr(slab, name, guard(name))
         return self
 
     def __exit__(self, *exc):
-        self._slab.smooth_dd_transpose = self._plain
+        for name, fn in self._plain.items():
+            setattr(self._slab, name, fn)
         return False
 
 
@@ -1376,7 +1448,7 @@ def ptxas_report(log_text: str) -> dict:
         if m:
             mangled = m.group(1)
             fn = re.search(r"\d+(slab_march_kernel|slab_replay_kernel_bounded|slab_replay_kernel|important_bounds_kernel"
-                           r"|lookahead_kernel)", mangled)
+                           r"|lookahead_kernel|voxel_grad_chain_kernel|voxel_grad_kernel)", mangled)
             args = "".join(re.findall(r"L[bi](\d+)E", mangled))
             name = (fn.group(1) if fn else mangled[:40]) + (f"<{args}>" if args else "")
             report[name] = [0, 0]
@@ -1448,17 +1520,21 @@ class KernelSwap:
 
 
 class Before:
-    """The march (B1), replay (B2) and gate (B6, B7) kernels built from
-    another checkout's sources (``--parent DIR``), launched through this
-    checkout's wrappers on the same inputs, so that a kernel's time before
-    a change sits beside its time after it, in one process on one card.
-    The C entries take the same arguments.  The replay's ``dd`` is
-    allocated as that checkout's wrapper allocates it: zero-filled, unless
-    its ``ops/slab_replay.py`` allocates with ``ALLOC_DD = torch.empty``
-    (its kernel then writes each ray's step range), so the zero-fill a
-    parent's kernel needs counts in its time."""
+    """The march (B1), replay (B2), gate (B6, B7) and fold-and-scatter (B3,
+    B4) kernels built from another checkout's sources (``--parent DIR``),
+    launched through this checkout's wrappers on the same inputs, so that a
+    kernel's time before a change sits beside its time after it, in one
+    process on one card.  The C entries take the same arguments.  The
+    replay's ``dd`` is allocated as that checkout's wrapper allocates it:
+    zero-filled, unless its ``ops/slab_replay.py`` allocates with
+    ``ALLOC_DD = torch.empty`` (its kernel then writes each ray's step
+    range), so the zero-fill a parent's kernel needs counts in its time.  A
+    checkout with ``csrc/feats_grad.cu`` computes the plain rows' camera
+    chain (B5) as its own kernel over a zero-filled tensor of folded rows
+    that its fold writes (:meth:`chain`); one without it, fused into the
+    fold."""
 
-    NAMES = ("slab_march", "lookahead", "slab_replay")
+    NAMES = ("slab_march", "lookahead", "slab_replay", "voxel_grad")
 
     def __init__(self, root):
         import torch
@@ -1469,9 +1545,11 @@ class Before:
         if not all((self.csrc / f"{n}.cu").exists() for n in self.NAMES):
             raise SystemExit(f"chip_smoke: --parent {root} holds no volym_tpu_torch/ops/csrc/"
                              f"{{{','.join(self.NAMES)}}}.cu")
+        self.names = self.NAMES + (("feats_grad",) if (self.csrc / "feats_grad.cu").exists() else ())
         wrapper = (root / "volym_tpu_torch" / "ops" / "slab_replay.py").read_text()
         self.alloc_dd = torch.empty if "ALLOC_DD = torch.empty" in wrapper else torch.zeros
         self.fns = {}
+        self.b5 = None
 
     def build(self, name):
         from volym_tpu_torch.ops import _build
@@ -1479,11 +1557,18 @@ class Before:
         return _build.build(name, self.csrc)
 
     def load(self, builds):
-        from volym_tpu_torch.ops import lookahead, slab_march, slab_replay
+        from volym_tpu_torch.ops import lookahead, slab_march, slab_replay, voxel_grad
 
-        self.modules = {"slab_march": slab_march, "lookahead": lookahead, "slab_replay": slab_replay}
+        self.modules = {"slab_march": slab_march, "lookahead": lookahead, "slab_replay": slab_replay,
+                        "voxel_grad": voxel_grad}
         for name, built in builds.items():
-            self.fns[name] = self.modules[name]._bind(ctypes.CDLL(str(built.path)))
+            lib = ctypes.CDLL(str(built.path))
+            if name == "feats_grad":  # its C entry as that checkout's wrapper bound it
+                fn = self.b5 = lib.feats_grad_launch
+                fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            else:
+                self.fns[name] = self.modules[name]._bind(lib)
 
     def ms(self, name, fn, reps, alloc_dd=None):
         """``cuda_ms`` of ``fn`` with the module ``name``'s kernel swapped
@@ -1498,6 +1583,57 @@ class Before:
                 return cuda_ms(fn, reps)
         finally:
             slab_replay.ALLOC_DD = own_alloc
+
+    def scatter_fn(self, feats, dd, steps, vol_shape, sign, params, want_folded=False):
+        """That checkout's fold-and-scatter, as ``smooth_backward``'s
+        ``scatter_fn`` (the folded rows when asked)."""
+        from volym_tpu_torch.ops import voxel_grad
+
+        with KernelSwap(voxel_grad, self.fns["voxel_grad"]):
+            return voxel_grad.fold_scatter_cuda(feats, dd, steps, vol_shape, sign, params, want_folded)
+
+    def feats_grad_fn(self, feats, vol, folded, sign, params):
+        """That checkout's own B5 (``csrc/feats_grad.cu``) on the (N, H, W)
+        folded rows, as ``smooth_backward``'s ``feats_grad_fn``."""
+        import torch
+
+        d_feats = torch.zeros_like(feats)
+        n, nr, nc = vol.shape
+        rc = self.b5(feats.data_ptr(), vol.data_ptr(), folded.data_ptr(), d_feats.data_ptr(), feats.shape[1],
+                     feats.shape[2], n, nr, nc, int(sign), int(params.subtexel_bits), folded.stride(0),
+                     torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"--parent {self.label} feats_grad launch failed with CUDA error {rc}")
+        return d_feats
+
+    def chain(self, feats, dd, steps, vol, sign, params):
+        """That checkout's smoothed backward with the plain rows' camera
+        chain on these inputs -> (d_vol, d_grad, d_feats) and its parts'
+        functions (``{part: fn}``, to time): with its own B5, the zero-fill
+        of the (N, H, W) folded rows, its fold writing them (the wrapper's
+        zero-fills included) and B5 reading them; without, its fused
+        chain."""
+        import torch
+
+        from volym_tpu_torch.ops import voxel_grad
+
+        if self.b5 is None:
+            def fused():
+                with KernelSwap(voxel_grad, self.fns["voxel_grad"]):
+                    return voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, params, vol=vol)
+            return fused(), {"fused chain": fused}
+
+        def route():
+            d_vol, d_grad, folded = self.scatter_fn(feats, dd, steps, vol.shape, sign, params, True)
+            return d_vol, d_grad, self.feats_grad_fn(feats, vol, folded, sign, params)
+
+        folded = self.scatter_fn(feats, dd, steps, vol.shape, sign, params, True)[2]
+        return route(), {
+            "route": route,
+            "zero-fill": lambda: torch.zeros(folded.shape, device=feats.device),
+            "fold with the rows": lambda: self.scatter_fn(feats, dd, steps, vol.shape, sign, params, True),
+            "B5": lambda: self.feats_grad_fn(feats, vol, folded, sign, params),
+        }
 
 
 def main(argv=None) -> int:
@@ -1534,11 +1670,11 @@ def main(argv=None) -> int:
     if "arch=compute_90a,code=sm_90a" not in _build.NVCC_FLAGS:
         raise AssertionError("the kernels must be built for sm_90a")
     parents = [Before(d) for d in args.parent]
-    with ThreadPoolExecutor(len(SOURCES) + len(parents) * len(Before.NAMES)) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + sum(len(parent.names) for parent in parents)) as pool:
         own = pool.map(_build.build, SOURCES)
-        theirs = [pool.map(parent.build, Before.NAMES) for parent in parents]
+        theirs = [pool.map(parent.build, parent.names) for parent in parents]
         builds = dict(zip(SOURCES, own))
-        before_builds = [dict(zip(Before.NAMES, t)) for t in theirs]
+        before_builds = [dict(zip(parent.names, t)) for parent, t in zip(parents, theirs)]
     for name, built in builds.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", built.log)]
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", built.log))
@@ -1590,6 +1726,38 @@ def main(argv=None) -> int:
         err[kernel] = max(err[kernel], float((want - got).detach().abs().max()))
         rel[kernel] = max(rel[kernel], r.max_abs_err / r.scale, worst)
         return r, worst
+
+    def hold_chain(feats, dd, steps, vol, sign, p, label):
+        """The fused fold with the plain rows' camera chain (B5) on the
+        replay's cotangents ``dd`` and step range ``steps``, against the
+        plain composition: with one chunk of rows (``chunk`` = N) its
+        d_feats must equal ``slab.feats_grad`` on the fold's own folded rows
+        bit for bit; with one chunk and with the default chunks it is held
+        to ``slab.feats_grad`` on the plain transpose's rows by the repo's
+        rule, and its d_vol (d_grad) to the fold's without the chain.  ->
+        (d_feats with one chunk, whether it equals the plain chain on the
+        plain transpose's rows bit for bit)."""
+        kernel = "voxel_grad_shaded" if dd.dim() == 4 else "voxel_grad"
+        n = vol.shape[0]
+        d_vol, d_grad, rows = voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, True, n)
+        # the plain transpose reads all of dd: 0.0 outside each ray's step range
+        plain_rows = slab.smooth_voxel_grad(feats, slab.dense_dd(dd, steps), steps, vol.shape, sign, p, True)[2]
+        plain = slab.feats_grad(feats, vol, plain_rows, sign, p)
+        own = slab.feats_grad(feats, vol, rows, sign, p)
+        if float(plain.abs().max()) <= 0.0:
+            raise AssertionError(f"{label}: zero plain rows' chain")
+        got = {}
+        for chunk in (n, None):
+            got[chunk] = voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, chunk=chunk, vol=vol)
+            torch.cuda.synchronize()
+            hold(kernel, d_vol, got[chunk][0], f"{label} chain chunk={chunk} d_vol")
+            if d_grad is not None:
+                hold(kernel, d_grad, got[chunk][1], f"{label} chain chunk={chunk} d_grad")
+            hold("feats_grad", plain, got[chunk][2], f"{label} B5 fused, chunk={chunk}")
+        if not torch.equal(own, got[n][2]):
+            raise AssertionError(f"{label}: the fused chain with one chunk differs from the plain chain on the "
+                                 f"fold's rows by {float((own - got[n][2]).abs().max()):.3e}")
+        return got[n][2], torch.equal(plain, got[n][2])
 
     worst_edge, n_march, n_emit, n_replay = 0.0, 0, 0, 0
     small_routes = {"march": [0, 0], "gated": [0, 0], "smoothing": [0, 0]}  # B1's (staged, direct) pairs
@@ -1823,9 +1991,9 @@ def main(argv=None) -> int:
         raise AssertionError(f"{n_smooth}, {n_smooth_replay}, {n_scatter}, {n_fold} smoothing cases ran, expected 48, "
                              f"96, 48, 48; smoothing changed {n_engaged} images")
 
-    # camera gradients: B2's camera mode and B5 against their plain versions
-    # (f32: camera cotangents turn the u8 stream and the residual off), the
-    # smoothed cases on the 256^3 bonsai
+    # camera gradients: B2's camera mode and B5 (fused into the fold) against
+    # their plain versions (f32: camera cotangents turn the u8 stream and the
+    # residual off), the smoothed cases on the 256^3 bonsai
     n_cam, n_cam_bits, n_b5, n_b5_bits = 0, 0, 0, 0
     for h, v in ORBITS:
         cam = Camera(aspect=SMALL_W / SMALL_H, distance=1.3).orbit(h, v, 0.0).matrices()
@@ -1862,17 +2030,12 @@ def main(argv=None) -> int:
                     hold("slab_replay", want[-1], got[-1], f"{label} d_feats")
                     n_cam, n_cam_bits = n_cam + 1, n_cam_bits + torch.equal(want[-1], got[-1])
                     if smooth and tri:
-                        plain_dd = slab.smooth_voxel_grad(feats, want[0], want[1], vol.shape, sign, p, True)[2]
-                        b5 = feats_grad.feats_grad_cuda(feats, vol, plain_dd, sign, p)
-                        plain_b5 = slab.feats_grad(feats, vol, plain_dd, sign, p)
-                        torch.cuda.synchronize()
-                        if float(plain_b5.abs().max()) <= 0.0:
-                            raise AssertionError(f"{label}: zero B5 output")
-                        hold("feats_grad", plain_b5, b5, f"{label} B5")
-                        n_b5, n_b5_bits = n_b5 + 1, n_b5_bits + torch.equal(plain_b5, b5)
+                        bits = hold_chain(feats, want[0], want[1], vol, sign, p, label)[1]
+                        n_b5, n_b5_bits = n_b5 + 1, n_b5_bits + bits
     log(f"small camera: B2's camera chain == plain in {n_cam}/48 cases (d_feats bit for bit in {n_cam_bits}); "
-        f"B5 == plain in {n_b5}/12 (bit for bit in {n_b5_bits}; max abs err {err['feats_grad']:.3e}, over its scale "
-        f"{rel['feats_grad']:.3e})")
+        f"B5 fused into the fold == plain in {n_b5}/12 (with one chunk bit for bit with the plain chain on the "
+        f"kernel's folded rows in all, on the plain transpose's in {n_b5_bits}; max abs err {err['feats_grad']:.3e}, "
+        f"over its scale {rel['feats_grad']:.3e})")
     if (n_cam, n_b5) != (48, 12):
         raise AssertionError(f"{n_cam}, {n_b5} camera cases ran, expected 48, 12")
 
@@ -2538,6 +2701,8 @@ def main(argv=None) -> int:
             replay_resampled_ms=time_replay(f"unfused {name} {h}x{w} re-sampled", lambda: slab_replay.replay_cuda(
                 feats, vol, lut, sign, p, out, g, grad, u8), smooth=True),
             fold_ms=cuda_ms(lambda: voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p), 10),
+            fold_before_ms=parent_ms("voxel_grad", lambda: voxel_grad.fold_scatter_cuda(
+                feats, dd, steps, vol.shape, sign, p), 10),
             # the rows a thread walks: all of its ray's, or chunks of them
             fold_chunks_ms={
                 chunk: cuda_ms(lambda chunk=chunk: voxel_grad.fold_scatter_cuda(
@@ -2695,10 +2860,11 @@ def main(argv=None) -> int:
         want = (CAM_STEPS, CAM_STEPS, 0 if shaded else CAM_STEPS, CAM_STEPS if shaded else 0, CAM_STEPS if tri else 0,
                 0)
         if launched != want:
-            raise AssertionError(f"camera training {name}: (march, replay, B3 fold, B4 fold, B5, B3/B4 without the "
-                                 f"fold) launches {launched}, expected {want}")
-    log(f"camera training: (march, replay, B3 fold, B4 fold, B5, B3/B4 without the fold) launches {ctrain_launches} for {len(ctrainers)} x "
-        f"{CAM_STEPS} steps ({cper})")
+            raise AssertionError(f"camera training {name}: (march, replay, B3 fold, B4 fold, B5 fused into the fold, "
+                                 f"B3/B4 without the fold) launches {launched}, expected {want}")
+    log(f"camera training: (march, replay, B3 fold, B4 fold, B5 fused into the fold, B3/B4 without the fold) "
+        f"launches {ctrain_launches} for {len(ctrainers)} x {CAM_STEPS} steps, no plain transpose or plain chain on "
+        f"the card ({cper})")
 
     ctraining = {}
     for name, (p, s, render) in ctrainers.items():
@@ -2755,7 +2921,9 @@ def main(argv=None) -> int:
                 feats, vol, lut, sign, nocam, out, g, grad), smooth=True),
             plain_transpose_ms=cuda_ms(
                 lambda: slab.smooth_dd_transpose(feats, dense0, vol.shape[1], vol.shape[2], tri), 1),
-            fold_ms=cuda_ms(lambda: voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, tri), 10),
+            fold_ms=cuda_ms(lambda: voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p), 10),
+            fold_before_ms=parent_ms("voxel_grad", lambda: voxel_grad.fold_scatter_cuda(
+                feats, dd, steps, vol.shape, sign, p), 10),
             ranges=fold_inputs(feats, dense, steps),
         )
         # B2's bound with and without the chain, from this step's composited
@@ -2774,27 +2942,66 @@ def main(argv=None) -> int:
         row.update(replay_bound=with_chain["re-sampled"], replay_whole_dd_bound=with_chain["re-sampled whole dd"],
                    replay_no_camera_bound=replay_bounds(feats, vol, lut, grad, out, g, None, dd, steps, row["ranges"],
                                                         composited, stencils)["re-sampled"])
-        rows_k = voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, tri)[2]
         if tri:
+            # B5 fused into the fold, the main path's one launch: against the
+            # plain composition (one chunk of rows at this size: bit for bit)
+            b5, bits = hold_chain(feats, dd, steps, vol, sign, p, label)
+            plain_b5 = slab.feats_grad(feats, vol, plain_dd, sign, p)
+            r, _ = hold("feats_grad", plain_b5, b5, f"{label} B5 fused")
+            rows_k = voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, True)[2]
             inner = (plain_dd[1:-1] == rows_k[1:-1]).reshape(plain_dd.shape[0] - 2, -1).all(1)
             row["folded_rows_bitwise"] = f"{int(inner.sum())}/{inner.numel()}"
             hold("voxel_grad_shaded" if shaded else "voxel_grad", plain_dd, rows_k, f"{label} folded rows")
-        del rows_k
-        if tri:
-            b5 = feats_grad.feats_grad_cuda(feats, vol, plain_dd, sign, p)
-            plain_b5 = slab.feats_grad(feats, vol, plain_dd, sign, p)
-            torch.cuda.synchronize()
-            r, _ = hold("feats_grad", plain_b5, b5, f"{label} B5")
+            del rows_k
+            # B5's own work, recounted on this run's data: the nonzero folded
+            # entries and 4 table rows read, the distinct texels its taps
+            # touch, 4 rows of d_feats written; the fused kernel's: the fold's
+            # and the chain's texels, operations and d_feats rows
             entries = int((plain_dd != 0.0).sum())
-            b5_bound = bound(plain_dd.numel() * 4 + vol.numel() * 4 + 2 * 4 * rays * 4,
-                             entries * FEATS_GRAD_OPS_PER_ENTRY)
+            texels = chain_texels(feats, plain_dd, vol.shape, sign, p)
+            outs = voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p)[:2]
+            fused_bound = fold_bound(feats, steps, entries, outs, row["ranges"], extra_bytes=texels * 4 + 4 * rays * 4,
+                                     extra_ops=entries * CHAIN_OPS_PER_ROW)
+            fold_only = fold_bound(feats, steps, entries, outs, row["ranges"])
+            del outs
             row.update(
-                feats_grad_ms=cuda_ms(lambda: feats_grad.feats_grad_cuda(feats, vol, plain_dd, sign, p), 10),
+                chain_ms=cuda_ms(lambda: voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, vol=vol),
+                                 10),
+                # the plain version: the plain fold with its folded rows, then the plain chain on them
+                plain_chain_ms=cuda_ms(lambda: slab.feats_grad(feats, vol, slab.smooth_voxel_grad(
+                    feats, dense, steps, vol.shape, sign, p, True)[2], sign, p), 1),
                 plain_feats_grad_ms=cuda_ms(lambda: slab.feats_grad(feats, vol, plain_dd, sign, p), 1),
-                feats_grad_bound=b5_bound, feats_grad_entries=entries, feats_grad_max_abs_err=r.max_abs_err,
-                feats_grad_bitwise=torch.equal(plain_b5, b5),
+                chain_bound=bound(entries * 4 + 2 * 4 * rays * 4 + texels * 4, entries * CHAIN_OPS_PER_ROW),
+                chain_entries=entries, chain_texels=texels, fused_bound=fused_bound, fold_alone_bound=fold_only,
+                chain_max_abs_err=r.max_abs_err, chain_scale=r.scale, chain_bitwise=bits,
             )
-            del b5, plain_b5
+            # the parent's route: the (N, H, W) folded rows zero-filled, its
+            # fold writing them, its B5 walking all of them
+            before = {}
+            for parent in parents:
+                (_, _, p_feats), parts = parent.chain(feats, dense, steps, vol, sign, p)
+                torch.cuda.synchronize()
+                pr, _ = hold("feats_grad", plain_b5, p_feats, f"{label} --parent {parent.label} B5")
+                before[parent.label] = dict(ms={part: cuda_ms(fn, 10) for part, fn in parts.items()},
+                                            max_abs_err=pr.max_abs_err)
+            row["chain_before"] = before or None
+            # the NaN-filled dd outside each step range: the chain reads none of it
+            own_alloc = slab_replay.ALLOC_DD
+            slab_replay.ALLOC_DD = lambda shape, **kw: torch.full(shape, float("nan"), **kw)
+            try:
+                nan_dd, nan_steps = slab_replay.replay_cuda(feats, vol, lut, sign, p, out, g, grad)[:2]
+            finally:
+                slab_replay.ALLOC_DD = own_alloc
+            outside = slab.dense_dd(torch.ones_like(nan_dd), nan_steps) == 0.0
+            if not (bool(outside.any()) and bool(nan_dd[outside].isnan().all())):
+                raise AssertionError(f"{label}: the NaN fill did not stay outside the step ranges")
+            nan_out = voxel_grad.fold_scatter_cuda(feats, nan_dd, nan_steps, vol.shape, sign, p, vol=vol)
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(t).all()) for t in nan_out if t is not None):
+                raise AssertionError(f"{label}: the fused chain read the NaN outside the step ranges")
+            hold("feats_grad", b5, nan_out[2], f"{label} B5 fused on a NaN-filled dd")
+            row["nan_filled_dd_bitwise"] = torch.equal(b5, nan_out[2])
+            del b5, plain_b5, nan_dd, nan_steps, nan_out, outside
 
         def kernel_step(s=s, render=render):
             s.volume.grad = s.tf_lut.grad = None
@@ -2811,6 +3018,26 @@ def main(argv=None) -> int:
                 step_ms=cuda_ms(kernel_step, 5), no_camera_step_ms=cuda_ms(nocam_step, 5), plain_step_ms=plain_step_ms,
                 profile=device_profile(kernel_step, 3), step0=agree,
             )
+        # one step's peak memory; with the chain, beside the step whose fold
+        # writes the (N, H, W) folded rows for a B5 that walks them (each
+        # --parent's own kernels where it has its own B5, else this fold's
+        # rows and the plain chain)
+        row["step_peak_mb"] = peak_mb(kernel_step)
+        if tri:
+            route = next(((parent.label, parent.scatter_fn, parent.feats_grad_fn) for parent in parents
+                          if parent.b5 is not None), ("folded rows", voxel_grad.fold_scatter_cuda, slab.feats_grad))
+
+            def rows_step(s=s, route=route):
+                s.volume.grad = s.tf_lut.grad = None
+                slab_march.render_diff(s, cam_leaves(), p, FULL_H, FULL_W, scatter_fn=route[1],
+                                       feats_grad_fn=route[2]).sum().backward()
+
+            row["folded_rows_step_peak_mb"] = dict(route=route[0], mb=peak_mb(rows_step))
+            folded_mb = vol.shape[0] * rays * 4 / 1e6
+            saved = row["folded_rows_step_peak_mb"]["mb"] - row["step_peak_mb"]
+            if saved < folded_mb - 64.0:
+                raise AssertionError(f"{label}: the step's peak is {saved:.1f} MB below the folded rows' route's, "
+                                     f"expected about {folded_mb:.1f} MB (the (N, H, W) folded rows)")
         ctraining[name] = row
         log(f"{label}: {json.dumps(row)}")
         del out, g, dd, dense, dense0, steps, plain_dd
@@ -3116,7 +3343,8 @@ def main(argv=None) -> int:
                             bound_ms=g["fold_bound"][0], bound_by=g["fold_bound"][1],
                             library_ms=g["fold_library_ms"],
                             library="index_add_ of the nonzero folded entries' precomputed corner indices and "
-                                    "weights, their computation excluded")
+                                    "weights, their computation excluded",
+                            extra=dict(before_ms=g["fold_before_ms"]))
     rows["slab_march"]["launches"] += gtrain_launches[0] + ctrain_launches[0] + mode_launches[0] + mtrain_launches[0]
     rows["slab_replay"]["launches"] += gtrain_launches[1] + ctrain_launches[1] + mtrain_launches[1]
     rows["lookahead_straight"]["launches"] += mtrain_launches[2]
@@ -3136,10 +3364,18 @@ def main(argv=None) -> int:
                              bound_by=row["replay_bound"][1]) for name, row in mtraining.items()}
     rows["voxel_grad"]["launches"] += ctrain_launches[2]
     rows["voxel_grad_shaded"]["launches"] += ctrain_launches[3]
-    # B5 at 1024x768 in the smoothed bench step with camera gradients
+    # B5, fused into B3's fold, at 1024x768 in the smoothed bench step with
+    # camera gradients: the fused kernel's time and bound (its plain version
+    # the plain fold and the plain chain), B5's own recounted bound, the
+    # fold's time without the chain, and each --parent's route
     c = ctraining["bench_gaussian"]
-    rows["feats_grad"] = dict(launches=ctrain_launches[4], ms=c["feats_grad_ms"], plain_ms=c["plain_feats_grad_ms"],
-                              bound_ms=c["feats_grad_bound"][0], bound_by=c["feats_grad_bound"][1])
+    rows["feats_grad"] = dict(launches=ctrain_launches[4], ms=c["chain_ms"], plain_ms=c["plain_chain_ms"],
+                              bound_ms=c["fused_bound"][0], bound_by=c["fused_bound"][1],
+                              extra=dict(chain_bound_ms=c["chain_bound"][0], chain_bound_by=c["chain_bound"][1],
+                                         fold_without_chain_ms=c["fold_ms"], plain_feats_grad_ms=c["plain_feats_grad_ms"],
+                                         step_peak_mb=c["step_peak_mb"],
+                                         folded_rows_step_peak_mb=c["folded_rows_step_peak_mb"],
+                                         before=c["chain_before"]))
     for kernel, n in dist_launches.items():
         rows[kernel]["launches"] += n
     log(json.dumps({"kernels": [
@@ -3149,7 +3385,8 @@ def main(argv=None) -> int:
          "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
          **({"library": row["library"]} if "library" in row else {}),
          **({"modes": row["modes"]} if "modes" in row else {}),
-         **({"bound_ms_old_count": row["bound_ms_old_count"]} if "bound_ms_old_count" in row else {})}
+         **({"bound_ms_old_count": row["bound_ms_old_count"]} if "bound_ms_old_count" in row else {}),
+         **row.get("extra", {})}
         for name, row in rows.items()
     ]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """The CUDA march, replay (with its camera chain and its step range),
-voxel-gradient scatter (fused with the smoothing stencil's transpose, and
-without it), plain-row camera chain and look-ahead gate kernels against
-their plain PyTorch versions, on the card.
+voxel-gradient scatter (fused with the smoothing stencil's transpose, with
+the plain rows' camera chain fused into that, and without it) and
+look-ahead gate kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: these skip where ``torch.cuda.is_available()`` is false.
 Run them on a GPU machine with
@@ -499,7 +499,9 @@ def test_dd_outside_the_step_range_is_never_read(scene256, device, monkeypatch, 
     allocation NaN-filled instead of left as it is, the fused
     fold-and-scatter's d_vol / d_grad and the whole smoothed training
     step's gradients (camera ones too) stay finite and agree with a
-    zero-filled run by the repo rule (atomics reorder the sums)."""
+    zero-filled run by the repo rule (atomics reorder the sums); with
+    camera gradients and trilinear sampling the fold's d_feats (the plain
+    rows' camera chain fused in) too."""
     p = RenderParams(use_gaussian_smoothing=True, interpolation=interp, use_shading=shading,
                      raymarching_step_size=0.005, camera_grads=camera)
     cam = Camera(aspect=W / H, distance=1.3).orbit(30.0, 20.0, 0.0).matrices()
@@ -510,7 +512,7 @@ def test_dd_outside_the_step_range_is_never_read(scene256, device, monkeypatch, 
 
     def run():
         dd, steps = slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g, grad, u8)[:2]
-        fold = voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, chain)
+        fold = voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, vol=vol if chain else None)
         scene = Scene(scene256.volume.clone().requires_grad_(True), scene256.importance,
                       scene256.tf_lut.clone().requires_grad_(True))
         cm = Camera(aspect=W / H).orbit(10.0, 5.0, 0.0).matrices()
@@ -527,7 +529,8 @@ def test_dd_outside_the_step_range_is_never_read(scene256, device, monkeypatch, 
     dd, steps, fold, grads = run()
     outside = ~(slab.dense_dd(torch.ones_like(dd), steps) > 0.0)
     assert bool(outside.any()) and bool(dd[outside].isnan().all()), "the NaN fill did not stay outside the ranges"
-    for name, a, b in zip(("d_vol", "d_grad", "folded rows"), want_fold, fold):
+    assert (fold[2] is not None) == chain
+    for name, a, b in zip(("d_vol", "d_grad", "d_feats"), want_fold, fold):
         if a is not None:
             assert bool(torch.isfinite(b).all()), name
             parity.check_close(a, b, name)
@@ -617,8 +620,10 @@ def _camera_inputs(scene, scene256, h, v, interp, shading, smooth):
 def test_camera_replay_and_feats_grad_match_plain(scene, scene256, h, v, interp, shading, smooth):
     """B2's camera mode against the plain replay (d_feats and the other
     outputs by the repo rule, d_lut by the two-group rule), and under
-    trilinear smoothing B5 against the plain rows' chain on the folded
-    cotangents, read through a channel view when shaded."""
+    trilinear smoothing B5, fused into the fold, on B2's cotangents against
+    the plain rows' chain on the plain folded cotangents: by the repo rule
+    with the default chunks of rows, bit for bit with one chunk against the
+    plain chain on the fold's own folded rows."""
     p, feats, vol, lut, sign, grad = _camera_inputs(scene, scene256, h, v, interp, shading, smooth)
     img = slab_march.march_cuda(feats, vol, lut, sign, p, grad)
     g = torch.from_numpy(np.random.default_rng(3).uniform(-1, 1, (H, W, 4)).astype(np.float32)).to(img.device)
@@ -626,6 +631,7 @@ def test_camera_replay_and_feats_grad_match_plain(scene, scene256, h, v, interp,
     got = slab_replay.replay_cuda(feats, vol, lut, sign, p, img, g, grad)
     torch.cuda.synchronize()
     assert len(got) == len(want)
+    raw_dd = got[0]
     if smooth:  # dd is written on each ray's step range only
         got = (slab.dense_dd(got[0], got[1]), *got[1:])
     for a, b in zip(want[:-2], got[:-2]):
@@ -637,21 +643,32 @@ def test_camera_replay_and_feats_grad_match_plain(scene, scene256, h, v, interp,
     if smooth:
         assert torch.equal(want[1], got[1]), "step range"
     if smooth and interp == "trilinear":
-        plain_dd = slab.smooth_voxel_grad(feats, want[0], want[1], vol.shape, sign, p, want_folded=True)[2]
-        before = feats_grad.LAUNCHES
-        b5 = feats_grad.feats_grad_cuda(feats, vol, plain_dd, sign, p)
-        assert feats_grad.LAUNCHES == before + 1
+        plain_vol, plain_grad, plain_dd = slab.smooth_voxel_grad(feats, want[0], want[1], vol.shape, sign, p,
+                                                                 want_folded=True)
         plain_b5 = slab.feats_grad(feats, vol, plain_dd, sign, p)
-        torch.cuda.synchronize()
         assert float(plain_b5.abs().max()) > 0
-        parity.check_close(plain_b5, b5, "feats_grad")
+        n = vol.shape[0]
+        for chunk in (None, n):
+            before = (feats_grad.LAUNCHES, voxel_grad.FOLD_LAUNCHES + voxel_grad.FOLD_SHADED_LAUNCHES)
+            d_vol, d_grad, b5 = voxel_grad.fold_scatter_cuda(feats, raw_dd, got[1], vol.shape, sign, p, chunk=chunk,
+                                                             vol=vol)
+            torch.cuda.synchronize()
+            assert (feats_grad.LAUNCHES, voxel_grad.FOLD_LAUNCHES + voxel_grad.FOLD_SHADED_LAUNCHES) == (
+                before[0] + 1, before[1] + 1)
+            parity.check_close(plain_b5, b5, f"feats_grad chunk={chunk}")
+            parity.check_close(plain_vol, d_vol, f"d_vol chunk={chunk}")
+            if shading:
+                parity.check_close(plain_grad, d_grad, f"d_grad chunk={chunk}")
+        rows = voxel_grad.fold_scatter_cuda(feats, raw_dd, got[1], vol.shape, sign, p, True, n)[2]
+        assert torch.equal(slab.feats_grad(feats, vol, rows, sign, p), b5), "one chunk: not the plain chain's bits"
 
 
 @pytest.mark.parametrize("interp,shading", [("trilinear", False), ("nearest", True), ("trilinear", True)])
 def test_camera_differentiable_renderer_counts_launches(scene256, device, interp, shading):
     """The smoothed training step with camera gradients launches B1, B2, B3
-    (or B4 when shaded) and, with trilinear sampling, B5 once each; its
-    image, volume, LUT and camera gradients agree with the plain step's."""
+    (or B4 when shaded) once each, with trilinear sampling B3 (B4) with B5
+    fused in; its image, volume, LUT and camera gradients agree with the
+    plain step's."""
     p = RenderParams(interpolation=interp, use_shading=shading, raymarching_step_size=0.005)
 
     def step(render_fn):
@@ -681,18 +698,61 @@ def test_camera_differentiable_renderer_counts_launches(scene256, device, interp
     parity.check_camera_grad(want[3], got[3], "camera")
 
 
+def test_camera_step_allocates_no_folded_rows(scene256, device):
+    """The 1024x768 smoothed camera step (trilinear, 256 planes) makes no
+    (N, H, W) tensor of folded rows: its peak memory lies at least N x H x W
+    float32 (less 32 MiB) below the same step whose fold writes the folded
+    rows for a plain chain that walks them, with which its gradients agree
+    by the repo rule."""
+    h, w = 768, 1024
+    p = RenderParams(interpolation="trilinear", use_shading=False, raymarching_step_size=0.005,
+                     density_threshold=0.15)
+
+    def step(**fns):
+        vol = scene256.volume.clone().requires_grad_(True)
+        lut = scene256.tf_lut.clone().requires_grad_(True)
+        cam = Camera(aspect=w / h).orbit(10.0, 5.0, 0.0).matrices()
+        cam.inverse_view_proj.requires_grad_(True)
+        cam.position.requires_grad_(True)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        slab_march.render_diff(Scene(vol, scene256.importance, lut), cam, p, h, w, **fns).sum().backward()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before, vol.grad, cam.position.grad
+
+    n = slab.resolve_planes(p, 256)
+    launched = feats_grad.LAUNCHES
+    fused = step()
+    assert feats_grad.LAUNCHES == launched + 1
+    rows = step(scatter_fn=voxel_grad.fold_scatter_cuda, feats_grad_fn=slab.feats_grad)
+    assert feats_grad.LAUNCHES == launched + 1
+    assert rows[0] - fused[0] >= n * h * w * 4 - 32 * 2**20, (rows[0], fused[0])
+    parity.check_close(rows[1], fused[1], "d_volume")
+    parity.check_close(rows[2], fused[2], "d_position")
+
+
 def test_feats_grad_cuda_checks_inputs(scene256):
+    """The fused chain's entry (``fold_scatter_cuda`` with ``vol``) refuses
+    what it does not take, and the plain rows' chain alone does not run on
+    CUDA tensors (it runs fused into the fold there)."""
     p, feats, vol, lut, sign, grad = _camera_inputs(scene256, scene256, 30.0, 20.0, "trilinear", True, True)
     dd = torch.zeros((vol.shape[0], 4, H, W), device=vol.device)
+    steps = torch.zeros((2, H, W), dtype=torch.int32, device=vol.device)
     with pytest.raises(ValueError, match="trilinear"):
-        feats_grad.feats_grad_cuda(feats, vol, dd[:, 0], sign, p.replace(interpolation="nearest"))
-    with pytest.raises(ValueError, match="dd"):
-        feats_grad.feats_grad_cuda(feats, vol, dd[:-1, 0], sign, p)
-    with pytest.raises(ValueError, match="planes must be contiguous"):
-        feats_grad.feats_grad_cuda(feats, vol, torch.zeros_like(dd[:, :2]).reshape(-1, H, 2 * W)[:vol.shape[0], :, ::2],
-                                   sign, p)
+        voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p.replace(interpolation="nearest"), vol=vol)
+    with pytest.raises(ValueError, match="vol must be"):
+        voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, vol=vol[:-1])
+    with pytest.raises(ValueError, match="vol must be"):
+        voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, vol=vol.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, vol=vol.transpose(1, 2))
     with pytest.raises(ValueError, match="on cpu"):
-        feats_grad.feats_grad_cuda(feats, vol.cpu(), dd[:, 0], sign, p)
+        voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, vol=vol.cpu())
+    with pytest.raises(ValueError, match="want_folded"):
+        voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, p, True, vol=vol)
+    with pytest.raises(ValueError, match="fused into the fold"):
+        feats_grad.feats_grad(feats, vol, dd[:, 0], sign, p)
     with pytest.raises(ValueError, match="re-sampled replay"):
         slab_replay.replay_cuda(feats, vol, lut, sign, p, dd[0, :3].permute(1, 2, 0).contiguous(),
                                 torch.zeros((H, W, 4), device=vol.device), grad, dens=dd[:, :1])

@@ -1,6 +1,6 @@
 // Device helpers shared by the slab march (slab_march.cu), its replay
-// backward (slab_replay.cu), the voxel-gradient scatters (voxel_grad.cu),
-// the plain rows' camera chain (feats_grad.cu) and the look-ahead gate
+// backward (slab_replay.cu), the voxel-gradient scatters with the plain
+// rows' camera chain (voxel_grad.cu) and the look-ahead gate
 // (lookahead.cu): the per-ray and cone tables' rows, the subtexel snap, the
 // nearest tap, the clamp-to-edge slice sample, its transpose and its
 // coordinate derivative, the TF texel lookup, the bound of a sample by its

@@ -85,7 +85,7 @@
 //     gradient-field channel's cotangent times that channel's derivative,
 //     each masked where the raw coordinate is clipped; bilinear only (box
 //     hats have none).  Under smoothing the density's part belongs to the
-//     plain rows and runs in feats_grad.cu (B5) after the transpose;
+//     plain rows and runs in voxel_grad.cu (CHAIN, B5) with the transpose;
 //   - F_TS: under smoothing with bilinear sampling, dd times the smoothed
 //     density's tap-offset derivative (smooth_density_dts, from the same
 //     window);

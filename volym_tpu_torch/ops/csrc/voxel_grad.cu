@@ -1,5 +1,6 @@
 // Voxel-gradient scatters for Hopper (sm_90a), with the smoothing stencil's
-// transpose fused in (FOLD).
+// transpose fused in (FOLD) and, under it, the plain rows' camera chain
+// (CHAIN, B5).
 //
 // Replaces the TPU kernels volym_tpu/ops/slab_bwd_kernel.py::
 // _voxel_grad_kernel (B3: d_vol from a 1-channel cotangent) and
@@ -37,9 +38,29 @@
 // the end rows collect several clamped steps, which the plain index_add_
 // sums in no fixed order on the card.  Row k is scattered once; the gradient-field
 // channels 1..3 of a shaded dd are not folded (slab_bwd_kernel.py:
-// 1684-1691) and scatter at their own step.  When asked (camera gradients
-// with trilinear sampling) the kernel also writes the folded rows for B5
-// (feats_grad.cu).
+// 1684-1691) and scatter at their own step.  When asked (the tests only)
+// the kernel also writes the folded rows.
+//
+// CHAIN (camera gradients with trilinear sampling): the plain rows' camera
+// chain, which replaces the TPU kernel _feats_grad_kernel (B5, pass 2b,
+// slab_bwd_kernel.py:968, driven by _run_feats_grad; the plain version is
+// volym_tpu_torch/render/slab.py::feats_grad on the folded rows).  A
+// smoothed step's density mixes the plain rows of later steps, so the
+// chain of plain row k needs its folded cotangent, which this thread has
+// just summed in a register at row k's snapped coordinates and plane: at
+// each nonzero row it takes the coordinate derivative of row k's own
+// sample (dsample in slab_common.cuh, 4 taps of the f32 slice), masks it
+// where the raw coordinate is clipped, and adds d_rows * k, d_rows,
+// d_cols * k and d_cols to four register sums in row order, the plain
+// version's order.  At the end of its chunk the thread writes them to the
+// rows F_RS/F_RB/F_CS/F_CB of d_feats: a plain store when the grid has one
+// chunk (bit for bit with the plain version on the same folded rows), an
+// atomicAdd of its partial sums otherwise (their order changes from run to
+// run: held to the plain version by tolerance).  No (n, H, W) tensor of
+// folded rows is written or read: the TPU's pass 2b walks all of one, of
+// which a ray's nonzero rows lie in [first - 3, last + 3].
+// Instantiated with BILINEAR only: box hats have no coordinate derivative
+// (slab_bwd_kernel.py:1789).
 //
 // Bound: bytes.  dd is 805 MB at 1024x768 x 256 planes (1.6 GB with 4
 // channels), but a ray composites a few steps, and the replay records the
@@ -47,7 +68,8 @@
 // The kernel reads dd only inside that range and walks rows [first - 3,
 // last + 3]: what it must read is the in-range dd, the range table and 5
 // rows of the per-ray table, and it writes d_vol (and d_grad, and the
-// folded rows when asked) once.  The 32 rays of a warp walk the union of
+// folded rows when asked) once; CHAIN adds the texels its taps read and 4
+// rows of d_feats written once.  The 32 rays of a warp walk the union of
 // their ranges step by step, so a warp's loads at one step stay within two
 // 64-byte rows of dd and its atomics land on neighbouring voxels of one
 // plane (each thread walking its own range measured slower).  A walk is a
@@ -110,12 +132,14 @@ __device__ __forceinline__ void scatter_step(const float* __restrict__ feats, co
     }
 }
 
-template <bool BILINEAR, bool SHADED>
+template <bool BILINEAR, bool SHADED, bool CHAIN>
 __device__ __forceinline__ void fold_scatter(const float* __restrict__ feats, const float* __restrict__ dd,
-                                             const int* __restrict__ steps, float* __restrict__ d_vol,
-                                             float* __restrict__ d_grad, float* __restrict__ folded, int height,
+                                             const int* __restrict__ steps, const float* __restrict__ vol,
+                                             float* __restrict__ d_vol, float* __restrict__ d_grad,
+                                             float* __restrict__ folded, float* __restrict__ d_feats, int height,
                                              int width, int n, int nr, int nc, int sign, int subtexel,
                                              int chunk) {
+    static_assert(BILINEAR || !CHAIN, "box hats have no coordinate derivative");
     constexpr int DW = SHADED ? 4 : 1;
     constexpr int HALO = SMOOTH_HALO, ROWS = SMOOTH_ROWS;
     const int x = blockIdx.x * TILE_X + threadIdx.x;
@@ -220,6 +244,8 @@ __device__ __forceinline__ void fold_scatter(const float* __restrict__ feats, co
     for (int s = 0; s < ROWS - 1; ++s) classify(k_lo + s - HALO, rv[s], rw[s], rm[s]);
 
     const size_t slice = (size_t)nr * nc;
+    // CHAIN: the plain rows' camera chain, d_feats' rows F_RS, F_RB, F_CS, F_CB
+    float a_rs = 0.0f, a_rb = 0.0f, a_cs = 0.0f, a_cb = 0.0f;
     for (int k = k_lo; k <= k_hi; k += UNROLL) {
 #pragma unroll
         for (int s = ROWS - 1; s < WIN; ++s) rv[s] = load(k + s - HALO);
@@ -267,6 +293,16 @@ __device__ __forceinline__ void fold_scatter(const float* __restrict__ feats, co
             if (acc != 0.0f) {
                 scatter<BILINEAR>(d_vol + kk * slice, rows, cols, nr, nc, acc);
                 if (folded != nullptr) folded[(size_t)kr * n_rays + r] = acc;
+                if (CHAIN) {  // as feats_grad: masked where the raw coordinate is clipped
+                    const float rows_raw = rs * kf + rb, cols_raw = cs * kf + cb;
+                    const float2 ds = dsample(vol + kk * slice, rows, cols, nr, nc);
+                    const float d_rows = (rows_raw > 0.0f && rows_raw < (float)(nr - 1)) ? acc * ds.x : 0.0f;
+                    const float d_cols = (cols_raw > 0.0f && cols_raw < (float)(nc - 1)) ? acc * ds.y : 0.0f;
+                    a_rs = a_rs + d_rows * kf;
+                    a_rb = a_rb + d_rows;
+                    a_cs = a_cs + d_cols * kf;
+                    a_cb = a_cb + d_cols;
+                }
             }
             if (SHADED && src) {
                 const float* dk = dd + (size_t)kr * DW * n_rays + r;
@@ -286,6 +322,20 @@ __device__ __forceinline__ void fold_scatter(const float* __restrict__ feats, co
             rm[s] = rm[s + UNROLL];
         }
     }
+    if (CHAIN && active) {
+        float* df = d_feats + r;
+        if (gridDim.z == 1) {  // the ray's one chunk: its sums in row order
+            df[F_RS * n_rays] = a_rs;
+            df[F_RB * n_rays] = a_rb;
+            df[F_CS * n_rays] = a_cs;
+            df[F_CB * n_rays] = a_cb;
+        } else if (a_rs != 0.0f || a_rb != 0.0f || a_cs != 0.0f || a_cb != 0.0f) {
+            atomicAdd(df + F_RS * n_rays, a_rs);
+            atomicAdd(df + F_RB * n_rays, a_rb);
+            atomicAdd(df + F_CS * n_rays, a_cs);
+            atomicAdd(df + F_CB * n_rays, a_cb);
+        }
+    }
 }
 
 template <bool BILINEAR, bool SHADED, bool FOLD>
@@ -298,19 +348,42 @@ __global__ void __launch_bounds__(TILE_X * TILE_Y) voxel_grad_kernel(
     float* __restrict__ folded,       // (n, H, W) zero-filled, or NULL (FOLD)
     int height, int width, int n, int nr, int nc, int sign, int subtexel, int chunk) {
     if constexpr (FOLD) {
-        fold_scatter<BILINEAR, SHADED>(feats, dd, steps, d_vol, d_grad, folded, height, width, n, nr, nc, sign,
-                                       subtexel, chunk);
+        fold_scatter<BILINEAR, SHADED, false>(feats, dd, steps, nullptr, d_vol, d_grad, folded, nullptr, height,
+                                              width, n, nr, nc, sign, subtexel, chunk);
     } else {
         scatter_step<BILINEAR, SHADED>(feats, dd, d_vol, d_grad, height, width, n, nr, nc, sign, subtexel);
     }
 }
 
-// without FOLD the grid's z extent is the step; with it, the chunk
+// FOLD with CHAIN (bilinear): held to two blocks an SM, the occupancy of
+// the fold without the chain (128 registers); unbounded, the chain's sums
+// and taps take ptxas past 128 registers, to one block an SM.  A kernel of
+// its own, so that the bound leaves the variants without the chain as
+// they are.
+template <bool SHADED>
+__global__ void __launch_bounds__(TILE_X * TILE_Y, 2) voxel_grad_chain_kernel(
+    const float* __restrict__ feats,  // (N_FEATURES, H, W)
+    const float* __restrict__ dd,     // (n, SHADED ? 4 : 1, H, W) in march order j
+    const int* __restrict__ steps,    // (2, H, W) first and last step with a cotangent
+    const float* __restrict__ vol,    // (n, nr, nc) f32, the volume as marched
+    float* __restrict__ d_vol,        // (n, nr, nc), zero-filled
+    float* __restrict__ d_grad,       // (3, n, nr, nc) when SHADED, zero-filled
+    float* __restrict__ d_feats,      // (N_FEATURES, H, W), zero-filled; rows F_RS..F_CB added here
+    int height, int width, int n, int nr, int nc, int sign, int subtexel, int chunk) {
+    fold_scatter<true, SHADED, true>(feats, dd, steps, vol, d_vol, d_grad, nullptr, d_feats, height, width, n, nr,
+                                     nc, sign, subtexel, chunk);
+}
+
+// 16x16 rays a block; the grid's z extent is the step without FOLD, the chunk with it
+dim3 grid_of(int height, int width, int z) {
+    return dim3((width + TILE_X - 1) / TILE_X, (height + TILE_Y - 1) / TILE_Y, z);
+}
+
 template <bool BILINEAR, bool SHADED, bool FOLD>
 void launch(const float* feats, const float* dd, const int* steps, float* d_vol, float* d_grad, float* folded,
             int height, int width, int n, int nr, int nc, int sign, int subtexel, int chunk, cudaStream_t stream) {
     const dim3 block(TILE_X, TILE_Y);
-    const dim3 grid((width + TILE_X - 1) / TILE_X, (height + TILE_Y - 1) / TILE_Y, FOLD ? (n + chunk - 1) / chunk : n);
+    const dim3 grid = grid_of(height, width, FOLD ? (n + chunk - 1) / chunk : n);
     voxel_grad_kernel<BILINEAR, SHADED, FOLD><<<grid, block, 0, stream>>>(
         feats, dd, steps, d_vol, d_grad, folded, height, width, n, nr, nc, sign, subtexel, chunk);
 }
@@ -332,6 +405,16 @@ int launch_variant(const float* feats, const float* dd, const int* steps, float*
     return (int)cudaGetLastError();
 }
 
+template <bool SHADED>
+int launch_chain(const float* feats, const float* dd, const int* steps, const float* vol, float* d_vol,
+                 float* d_grad, float* d_feats, int height, int width, int n, int nr, int nc, int sign, int subtexel,
+                 int chunk, cudaStream_t s) {
+    const dim3 block(TILE_X, TILE_Y);
+    voxel_grad_chain_kernel<SHADED><<<grid_of(height, width, (n + chunk - 1) / chunk), block, 0, s>>>(
+        feats, dd, steps, vol, d_vol, d_grad, d_feats, height, width, n, nr, nc, sign, subtexel, chunk);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entries for ctypes: launch on `stream` and return cudaGetLastError().
@@ -347,11 +430,24 @@ extern "C" int voxel_grad_launch(const float* feats, const float* dd, float* d_v
 }
 
 // FOLD: one thread per (ray, chunk of `chunk` rows) over the ray's step
-// range; `folded` may be NULL
+// range; `folded` may be NULL.  With `vol` (the f32 volume as marched) and
+// `d_feats` (zero-filled) not NULL, the CHAIN variant (`bilinear` only,
+// `folded` NULL) also adds the plain rows' camera chain into d_feats.  The
+// two come after `stream`, so that a caller of an older build passes them
+// to no effect.
 extern "C" int voxel_grad_fold_launch(const float* feats, const float* dd, const int* steps, float* d_vol,
                                       float* d_grad, float* folded, int height, int width, int n, int nr, int nc,
-                                      int sign, int subtexel, int bilinear, int shaded, int chunk, void* stream) {
+                                      int sign, int subtexel, int bilinear, int shaded, int chunk, void* stream,
+                                      const float* vol, float* d_feats) {
     if (n < 1 || chunk < 1) return (int)cudaErrorInvalidValue;
-    return launch_variant<true>(feats, dd, steps, d_vol, d_grad, folded, height, width, n, nr, nc, sign, subtexel,
-                                bilinear, shaded, chunk, static_cast<cudaStream_t>(stream));
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (vol == nullptr && d_feats == nullptr) {
+        return launch_variant<true>(feats, dd, steps, d_vol, d_grad, folded, height, width, n, nr, nc, sign,
+                                    subtexel, bilinear, shaded, chunk, s);
+    }
+    if (vol == nullptr || d_feats == nullptr || folded != nullptr || !bilinear) return (int)cudaErrorInvalidValue;
+    return shaded ? launch_chain<true>(feats, dd, steps, vol, d_vol, d_grad, d_feats, height, width, n, nr, nc, sign,
+                                       subtexel, chunk, s)
+                  : launch_chain<false>(feats, dd, steps, vol, d_vol, d_grad, d_feats, height, width, n, nr, nc, sign,
+                                        subtexel, chunk, s);
 }

@@ -589,15 +589,21 @@ def smooth_backward(
     :func:`slab.smooth_voxel_grad` on the CPU) moves the density channel
     through the stencil's transpose onto the plain rows and scatters every
     channel.  With camera gradients and trilinear sampling it also returns
-    the folded density rows, from which ``feats_grad_fn`` (default
-    :func:`feats_grad.feats_grad`: B5 on a GPU) adds the plain rows' camera
-    chain with ``vol``, the f32 volume as marched; otherwise ``d_feats`` is
-    None (box hats have no coordinate derivative,
-    ``slab_bwd_kernel.py:1789``).  ``dd`` from the CUDA replay is
-    unspecified outside each ray's step range (``slab_replay.replay_cuda``),
-    so ``scatter_fn`` must read it only inside ``steps``, as the fused
-    kernel does; the plain version's ``dd`` is 0.0 there."""
+    the folded density rows, from which ``feats_grad_fn`` adds the plain
+    rows' camera chain with ``vol``, the f32 volume as marched; otherwise
+    ``d_feats`` is None (box hats have no coordinate derivative,
+    ``slab_bwd_kernel.py:1789``).  With the two defaults on CUDA tensors
+    the two run as one launch of the fused kernel's ``CHAIN`` variant
+    (:func:`voxel_grad.fold_scatter_cuda` with ``vol``), which makes no
+    folded rows; on CPU tensors they are the plain versions.  ``dd`` from
+    the CUDA replay is unspecified outside each ray's step range
+    (``slab_replay.replay_cuda``), so ``scatter_fn`` must read it only
+    inside ``steps``, as the fused kernel does; the plain version's ``dd``
+    is 0.0 there."""
     chain = params.camera_grads and params.interpolation == Interpolation.TRILINEAR
+    fused = scatter_fn is voxel_grad.smooth_scatter and feats_grad_fn is feats_grad.feats_grad
+    if chain and fused and feats.device.type == "cuda":
+        return voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, params, vol=vol)
     d_vol, d_grad, folded = scatter_fn(feats, dd, steps, vol.shape, sign, params, chain)
     d_feats = feats_grad_fn(feats, vol, folded, sign, params) if chain else None
     return d_vol, d_grad, d_feats
@@ -616,13 +622,15 @@ class DiffMarch(torch.autograd.Function):
     per-step cotangents and their per-ray step range instead, and
     :func:`smooth_backward` folds and scatters them (the stencil's
     transpose fused into B3 or B4 on a GPU) and, for camera gradients with
-    trilinear sampling, adds the plain rows' chain (B5).  In the u8 domain
+    trilinear sampling, adds the plain rows' chain (B5, fused into the same
+    kernel on a GPU).  In the u8 domain
     the march reads ``round(vol_perm * 255)`` as uint8 and the d/d(scaled
     density) is multiplied by 255.  The march, the replay, the smoothed
     scatter and the plain rows' chain are ``march_fn``, ``replay_fn``,
     ``scatter_fn`` and ``feats_grad_fn`` (:func:`march`,
     :func:`slab_replay.replay`, :func:`voxel_grad.smooth_scatter` and
-    :func:`feats_grad.feats_grad` dispatch on the tensors' device).
+    :func:`feats_grad.feats_grad` dispatch on the tensors' device; the last
+    two as one, see :func:`smooth_backward`).
 
     ``gate``: the look-ahead gate, which both directions read and which
     gets no cotangent (``_mpl_bwd``, ``slab_kernel.py:1798-1822``).

@@ -17,6 +17,15 @@ one thread per ray over its step range, and adds with atomics
 (step, ray), stays for cotangents that are not folded
 (:func:`scatter_cuda`).
 
+With camera gradients and trilinear sampling the fold's ``CHAIN`` variant
+also computes the plain rows' camera chain, the counterpart of the TPU's
+pass 2b ``_feats_grad_kernel`` (B5): each folded row's cotangent, still in
+a register at the row's snapped coordinates and plane, times the
+coordinate derivative of the row's own sample, summed into the four
+affine rows of ``d_feats`` (:func:`fold_scatter_cuda` with ``vol``).  No
+(N, H, W) tensor of folded rows is made; its launches count in
+:data:`volym_tpu_torch.ops.feats_grad.LAUNCHES` as well.
+
 :func:`smooth_scatter` and :func:`scatter` dispatch on the device of their
 tensors: CPU tensors go to the plain versions
 :func:`volym_tpu_torch.render.slab.smooth_voxel_grad` and
@@ -31,6 +40,7 @@ import ctypes
 import torch
 
 from volym_tpu_torch.config import Interpolation, RenderParams
+from volym_tpu_torch.ops import feats_grad
 from volym_tpu_torch.render import slab as slab_mod
 from volym_tpu_torch.render.slab import N_FEATURES
 
@@ -39,23 +49,32 @@ from volym_tpu_torch.render.slab import N_FEATURES
 LAUNCHES = 0
 SHADED_LAUNCHES = 0
 #: launches of the fused fold-and-scatter kernel, 1-channel (B3) and
-#: 4-channel (B4), in this process (see :func:`fold_scatter_cuda`)
+#: 4-channel (B4), with the camera chain or without it, in this process
+#: (see :func:`fold_scatter_cuda`)
 FOLD_LAUNCHES = 0
 FOLD_SHADED_LAUNCHES = 0
 #: blocks the fused kernel aims to launch (see :func:`fold_chunk`)
 FOLD_BLOCKS = 2048
 
 
-def _library(entry: str = "voxel_grad_launch"):
+def _bind(lib: ctypes.CDLL):
+    """A loaded kernel library with the types of its two C entries set:
+    ``voxel_grad_launch`` (without the fold) and ``voxel_grad_fold_launch``
+    (the fold, and with ``vol`` and ``d_feats`` the camera chain)."""
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    for fn, argtypes in ((lib.voxel_grad_launch, [p] * 4 + [i] * 9 + [p]),
+                         (lib.voxel_grad_fold_launch, [p] * 6 + [i] * 10 + [p] * 3)):
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _library():
     from volym_tpu_torch.ops import _build
 
-    fn = getattr(_build.library("voxel_grad"), entry)
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        fn.argtypes = [p] * 4 + [i] * 9 + [p] if entry == "voxel_grad_launch" else [p] * 6 + [i] * 10 + [p]
-        fn.restype = ctypes.c_int
-    return fn
+    return _bind(_build.library("voxel_grad"))
 
 
 def _check(feats: torch.Tensor, dd: torch.Tensor, vol_shape, name: str):
@@ -90,7 +109,7 @@ def scatter_cuda(feats: torch.Tensor, dd: torch.Tensor, vol_shape, sign: int, pa
     dev = feats.device
     d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dev)
     d_grad = torch.zeros((3, n, nr, nc), dtype=torch.float32, device=dev) if shaded else None
-    fn = _library()
+    fn = _library().voxel_grad_launch
     with torch.cuda.device(dev):
         rc = fn(
             feats.data_ptr(), dd.data_ptr(), d_vol.data_ptr(), d_grad.data_ptr() if shaded else None,
@@ -132,7 +151,8 @@ def fold_chunk(n: int, height: int, width: int) -> int:
 
 
 def fold_scatter_cuda(feats: torch.Tensor, dd: torch.Tensor, steps: torch.Tensor, vol_shape, sign: int,
-                      params: RenderParams, want_folded: bool = False, chunk: int | None = None):
+                      params: RenderParams, want_folded: bool = False, chunk: int | None = None,
+                      vol: torch.Tensor | None = None):
     """Launch the fused fold-and-scatter kernel (``FOLD``; B3 for ``dd``
     (N, H, W), B4 for ``dd`` (N, 4, H, W)); same arguments and result as
     :func:`slab.smooth_voxel_grad`, whose ``steps`` the kernel reads: the
@@ -140,9 +160,23 @@ def fold_scatter_cuda(feats: torch.Tensor, dd: torch.Tensor, steps: torch.Tensor
     cotangent (``dd`` must be 0.0 outside them); the 32 rays of a warp walk
     the union of their ranges together.  ``chunk``: the plain rows one
     thread folds at most (one thread per ray and chunk; default
-    :func:`fold_chunk`).  The outputs are zero-filled here
-    (``torch.zeros``); the summation order of the atomics, and so the last
-    bits of ``d_vol`` and ``d_grad``, change from run to run."""
+    :func:`fold_chunk`).  ``want_folded`` (for the tests) also returns the
+    (N, H, W) folded density rows.
+
+    ``vol``, the (N, rows, cols) float32 volume as marched (camera
+    gradients with trilinear sampling; not with ``want_folded``): the
+    kernel's ``CHAIN`` variant also adds the plain rows' camera chain, and
+    the result is ``(d_vol, d_grad, d_feats)``, as
+    :func:`slab.smooth_voxel_grad` with ``want_folded`` followed by
+    :func:`slab.feats_grad` on its folded rows.  The folded rows are the
+    same with the chain and without it (one thread sums each, in a fixed
+    order).  With one chunk (``chunk >= N``) each ray's four sums are
+    stored in the plain version's order; with more, each chunk adds its
+    partial sums by atomics.
+
+    The outputs are zero-filled here (``torch.zeros``); the summation order
+    of the atomics, and so the last bits of ``d_vol``, ``d_grad`` and, with
+    several chunks, ``d_feats``, change from run to run."""
     global FOLD_LAUNCHES, FOLD_SHADED_LAUNCHES
     n, nr, nc, height, width, shaded = _check(feats, dd, vol_shape, "fold_scatter_cuda")
     dev = feats.device
@@ -151,6 +185,17 @@ def fold_scatter_cuda(feats: torch.Tensor, dd: torch.Tensor, steps: torch.Tensor
                          f"{tuple(steps.shape)} on {steps.device}")
     if not steps.is_contiguous():
         raise ValueError("steps must be contiguous")
+    chain = vol is not None
+    if chain:
+        if want_folded:
+            raise ValueError("the camera chain makes no folded rows: want_folded is for the fold alone")
+        if params.interpolation != Interpolation.TRILINEAR:
+            raise ValueError("the plain rows' camera chain needs trilinear sampling: box hats have no derivative")
+        if vol.device != dev or vol.dtype != torch.float32 or tuple(vol.shape) != (n, nr, nc):
+            raise ValueError(f"vol must be float32 {(n, nr, nc)} on {dev}, got {vol.dtype} {tuple(vol.shape)} "
+                             f"on {vol.device}")
+        if not vol.is_contiguous():
+            raise ValueError("vol must be contiguous")
     slab_mod.check_smooth_planes(n)
     chunk = fold_chunk(n, height, width) if chunk is None else chunk
     if chunk < 1:
@@ -158,7 +203,8 @@ def fold_scatter_cuda(feats: torch.Tensor, dd: torch.Tensor, steps: torch.Tensor
     d_vol = torch.zeros((n, nr, nc), dtype=torch.float32, device=dev)
     d_grad = torch.zeros((3, n, nr, nc), dtype=torch.float32, device=dev) if shaded else None
     folded = torch.zeros((n, height, width), dtype=torch.float32, device=dev) if want_folded else None
-    fn = _library("voxel_grad_fold_launch")
+    d_feats = torch.zeros_like(feats) if chain else None
+    fn = _library().voxel_grad_fold_launch
     with torch.cuda.device(dev):
         rc = fn(
             feats.data_ptr(), dd.data_ptr(), steps.data_ptr(), d_vol.data_ptr(),
@@ -166,6 +212,7 @@ def fold_scatter_cuda(feats: torch.Tensor, dd: torch.Tensor, steps: torch.Tensor
             height, width, n, nr, nc, int(sign), int(params.subtexel_bits),
             int(params.interpolation == Interpolation.TRILINEAR), int(shaded), int(chunk),
             torch.cuda.current_stream(dev).cuda_stream,
+            vol.data_ptr() if chain else None, d_feats.data_ptr() if chain else None,
         )
     if rc != 0:
         raise RuntimeError(f"voxel_grad fold kernel launch failed with CUDA error {rc}")
@@ -173,7 +220,10 @@ def fold_scatter_cuda(feats: torch.Tensor, dd: torch.Tensor, steps: torch.Tensor
         FOLD_SHADED_LAUNCHES += 1
     else:
         FOLD_LAUNCHES += 1
-    return d_vol, d_grad, folded
+    if not chain:
+        return d_vol, d_grad, folded
+    feats_grad.LAUNCHES += 1
+    return d_vol, d_grad, d_feats
 
 
 def smooth_scatter(feats, dd, steps, vol_shape, sign, params, want_folded=False):
@@ -183,3 +233,4 @@ def smooth_scatter(feats, dd, steps, vol_shape, sign, params, want_folded=False)
     if feats.device.type == "cpu":
         return slab_mod.smooth_voxel_grad(feats, dd, steps, vol_shape, sign, params, want_folded)
     return fold_scatter_cuda(feats, dd, steps, vol_shape, sign, params, want_folded)
+

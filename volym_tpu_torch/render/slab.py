@@ -18,13 +18,13 @@ smoothing stencil (:func:`smoothed_densities`), and emits the
 stored-density residual.  :func:`replay_slabs` is the plain version of the
 CUDA replay backward (:mod:`volym_tpu_torch.ops.slab_replay`),
 :func:`voxel_grad` that of the CUDA voxel-gradient scatters
-(:mod:`volym_tpu_torch.ops.voxel_grad`), :func:`feats_grad` that of the
-CUDA camera chain of the plain rows (:mod:`volym_tpu_torch.ops.feats_grad`),
-and :func:`lookahead_gate` that of the CUDA look-ahead gate
-(:mod:`volym_tpu_torch.ops.lookahead`).
+(:mod:`volym_tpu_torch.ops.voxel_grad`), and :func:`lookahead_gate` that
+of the CUDA look-ahead gate (:mod:`volym_tpu_torch.ops.lookahead`).
 :func:`smooth_voxel_grad` (the stencil's transpose
 :func:`smooth_dd_transpose`, then :func:`voxel_grad`) is that of the fused
-fold-and-scatter kernel the smoothed backward runs on the GPU.
+fold-and-scatter kernel the smoothed backward runs on the GPU, and with
+:func:`feats_grad` on its folded rows that of the kernel's variant with
+the plain rows' camera chain.
 
 Rays whose dominant-axis direction component opposes the camera forward
 axis (possible at extreme fov) render as (0, 0, 0, 0), as in the JAX package.
@@ -1045,8 +1045,9 @@ def replay_slabs(
 def feats_grad(feats: torch.Tensor, vol_perm: torch.Tensor, dd: torch.Tensor, sign: int, params: RenderParams):
     """The camera chain of the plain density rows under Gaussian smoothing
     -> d_feats (N_FEATURES, H, W), nonzero in F_RS/F_RB/F_CS/F_CB only.
-    The plain version of the CUDA kernel (``ops/csrc/feats_grad.cu``) and
-    the counterpart of the TPU's ``_feats_grad_kernel`` (B5, ``:968-1061``).
+    After :func:`smooth_voxel_grad`, the plain version of the fused CUDA
+    kernel's ``CHAIN`` variant (``ops/csrc/voxel_grad.cu``) and the
+    counterpart of the TPU's ``_feats_grad_kernel`` (B5, ``:968-1061``).
 
     ``dd``: (N, H, W) plain-row density cotangents in march order, the
     output of :func:`smooth_dd_transpose`.  A smoothed step's density mixes
