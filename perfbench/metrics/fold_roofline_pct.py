@@ -1,0 +1,8 @@
+"""Fold B3/B4 in a training step: its roofline's least time over its device time."""
+
+from perfbench import layers, spec
+
+
+def read(ctx):
+    data = spec.metric_data("fold_roofline_pct")
+    return layers.roofline_pct(ctx, "fold_roofline_pct", data["kernels"], data["work"])
