@@ -125,14 +125,6 @@ def test_marginal_time_of_a_cpu_op():
     assert harness.marginal_time(lambda: a @ a, iters=1, warmup=0) > 0
 
 
-def test_device_frame_ms_raises_on_the_cpu():
-    """No fall back to the CPU: there is no device timeline to read (on a
-    machine with CUDA, a frame that ran on the CPU leaves no device event)."""
-    a = torch.ones(8)
-    with pytest.raises(RuntimeError):
-        harness.device_frame_ms(lambda: a + 1)
-
-
 def test_scaling_table_not_ported():
     """``scaling_table``, which needed the then unported
     ``volym_tpu_torch.parallel``, runs on virtual CPU shards: the JAX

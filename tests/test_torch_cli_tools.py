@@ -134,7 +134,8 @@ def test_cli_run_live_sweep(tmp_path, monkeypatch):
 @pytest.mark.parametrize("command", ["run", "benchmark"])
 def test_cli_profile_writes_a_trace(tmp_path, monkeypatch, command):
     """``--profile DIR`` writes a Chrome trace of the timed region with the
-    CPU's ops (the CUDA activity only on a CUDA device)."""
+    CPU's ops (the CUDA activity only on a CUDA device) and the program's
+    ``volym.*`` spans."""
     monkeypatch.chdir(tmp_path)
     argv = [command, "--device", "cpu", "--renderer", "slab", "--side", "8", "--width", "8", "--height", "8",
             "--no-gaussian", "--profile", str(tmp_path / "prof")]
@@ -144,6 +145,7 @@ def test_cli_profile_writes_a_trace(tmp_path, monkeypatch, command):
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any(n.startswith("aten::") for n in names)
+    assert "volym.render" in names
 
 
 @pytest.mark.parametrize(

@@ -10,10 +10,10 @@ CSV schema (``BenchmarkResult``, ``src/main.rs:71-85``), with rays/s
 (frames x H x W / s) appended.
 
 A frame function returns its output while the device may still be working
-on it; :func:`force_sync` fences it.  Two clocks read a frame: the host's
-(:func:`marginal_time`, what a loop that renders frame after frame pays)
-and the device's (:func:`device_frame_ms`, from a ``torch.profiler``
-trace: the device's work alone).  Their ratio is the device's busy share.
+on it; :func:`force_sync` fences it.  :func:`marginal_time` reads a frame
+on the host's clock: what a loop that renders frame after frame pays.  The
+device's time by kernel and its idle share are the benchmark's
+(``perfbench/trace.py``).
 """
 
 from __future__ import annotations
@@ -154,35 +154,6 @@ def marginal_time(fn, *, iters: int = 25, warmup: int = 2) -> float:
     # frames, so it overstates the marginal time by at most fence/iters
     # rather than understating it by an arbitrary factor.
     return min(uppers)
-
-
-def device_frame_ms(fn, frames: int = 3) -> float:
-    """Device ms/frame of ``fn``: the summed device time of the CUDA kernels
-    and copies that ``frames`` calls launched, from a ``torch.profiler``
-    trace, over ``frames``.  One untraced call warms ``fn`` first.
-
-    It measures the device's occupancy only (no launch or host time), so
-    ``device_frame_ms / (1e3 * marginal_time)`` is the device's busy share
-    of a frame.  Raises where there is no CUDA device to read, or when the
-    trace holds no device event (``fn`` ran on the CPU)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("device_frame_ms reads a CUDA device's timeline; torch.cuda.is_available() is False")
-    force_sync(fn())
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = None
-        for _ in range(frames):
-            out = fn()
-        force_sync(out)
-        torch.cuda.synchronize()
-    busy_us = sum(
-        e.self_device_time_total for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    if busy_us <= 0:
-        raise RuntimeError("no device event in the profiler trace: the frame ran on no CUDA device")
-    return busy_us / 1e3 / frames
 
 
 #: frames launched between fences.  Fencing every frame would leave the

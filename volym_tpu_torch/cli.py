@@ -20,7 +20,9 @@ along the ray) is on by default as in the reference; ``--no-gaussian``
 turns it off.  ``--coloring`` colours by importance (a heat map; it
 replaces ``--importance``), ``--first-hit`` takes the colour of the first
 sample past the threshold.  ``--profile DIR`` writes a ``torch.profiler``
-trace of ``run``'s frames or ``benchmark``'s sweep to ``DIR/trace.json``;
+trace of ``run``'s frames or ``benchmark``'s sweep to ``DIR/trace.json``,
+the program's ``volym.*`` spans (:mod:`volym_tpu_torch.tracing`) beside
+the aten ops and the kernels;
 ``run --live-sweep`` with ``--renderer ray`` changes the threshold and the
 step size every frame.  ``fit`` renders its target with the golden t-step
 march and fits the volume and the LUT through the replay backward;
@@ -110,8 +112,9 @@ def _device(args):
 
 @contextlib.contextmanager
 def _maybe_profile(args):
-    """A ``torch.profiler`` trace of the region (CPU activity, and CUDA
-    activity on a CUDA device) into ``--profile DIR``/trace.json."""
+    """A ``torch.profiler`` trace of the region (CPU activity with the
+    program's ``volym.*`` spans, and CUDA activity on a CUDA device) into
+    ``--profile DIR``/trace.json."""
     if not args.profile:
         yield
         return
@@ -358,7 +361,8 @@ def build_parser() -> argparse.ArgumentParser:
         )
         p.add_argument(
             "--profile", metavar="DIR",
-            help="write a torch.profiler trace of run's frames or benchmark's sweep to DIR/trace.json",
+            help="write a torch.profiler trace of run's frames or benchmark's sweep to DIR/trace.json: the "
+            "program's volym.* spans beside the aten ops and the kernels",
         )
 
     p_run = sub.add_parser("run", help="orbit-sweep render loop")

@@ -27,6 +27,7 @@ import torch
 
 from volym_tpu_torch.render import slab as slab_mod
 from volym_tpu_torch.render.slab import CONE_FEATURES, N_FEATURES
+from volym_tpu_torch.tracing import span
 
 #: launches of the straight (B6) and the cone (B7) gate kernels in this
 #: process (see :func:`gate_cuda`)
@@ -129,6 +130,7 @@ def gate(feats, cone_feats, levels, sign, subtexel):
     """The look-ahead gate on the tensors' device: the plain version's
     (N, H, W) bool gate for CPU tensors, the CUDA kernel's packed gate for
     CUDA tensors (no fallback between them)."""
-    if feats.device.type == "cpu":
-        return slab_mod.lookahead_gate(feats, cone_feats, levels, sign, subtexel)
-    return gate_cuda(feats, cone_feats, levels, sign, subtexel)
+    with span("volym.gate"):
+        if feats.device.type == "cpu":
+            return slab_mod.lookahead_gate(feats, cone_feats, levels, sign, subtexel)
+        return gate_cuda(feats, cone_feats, levels, sign, subtexel)

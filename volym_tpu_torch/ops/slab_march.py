@@ -39,6 +39,7 @@ from volym_tpu_torch.render.slab import (
     CF_STRIDE, CONE_FEATURES, F_AEXP, F_C2, F_CB, F_CD, F_CS, F_ENTRY, F_EXIT, F_HX, F_HY, F_HZ, F_RB, F_RS,
     F_SIGNOK, F_TB, F_TS, N_FEATURES,
 )
+from volym_tpu_torch.tracing import span
 
 #: launches of the CUDA march kernel in this process (see :func:`march_cuda`)
 LAUNCHES = 0
@@ -390,43 +391,50 @@ def march(feats, vol_perm, lut, sign, params, grad_perm=None, u8=False, emit_den
     """The slab march on the tensors' device: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (no fallback between them).
     ``gate`` is what :func:`lookahead.gate` returns on the same device."""
-    if feats.device.type == "cpu":
-        return slab_mod.march_slabs(feats, vol_perm, lut, sign, params, grad_perm, u8, emit_density, gate, imp_perm)
-    return march_cuda(feats, vol_perm, lut, sign, params, grad_perm, u8, emit_density, gate, imp_perm)
+    with span("volym.march"):
+        if feats.device.type == "cpu":
+            return slab_mod.march_slabs(feats, vol_perm, lut, sign, params, grad_perm, u8, emit_density, gate,
+                                        imp_perm)
+        return march_cuda(feats, vol_perm, lut, sign, params, grad_perm, u8, emit_density, gate, imp_perm)
 
 
 def _layout(scene, camera_matrices, params: RenderParams, axis=None):
     """(major axis, march sign, sample-plane count, u8 domain) of a frame;
     ``axis``: the (major axis, march sign) to march along in place of the
     camera's own (:func:`slab.dominant_axis`)."""
-    major, sign = slab_mod.dominant_axis(camera_matrices) if axis is None else axis
-    n = scene.volume.shape[0]
-    planes = slab_mod.resolve_planes(params, n)
-    return major, sign, planes, u8_active(params, planes, n)
+    with span("volym.layout"):
+        major, sign = slab_mod.dominant_axis(camera_matrices) if axis is None else axis
+        n = scene.volume.shape[0]
+        planes = slab_mod.resolve_planes(params, n)
+        return major, sign, planes, u8_active(params, planes, n)
 
 
 def _gradient_perm(volume: torch.Tensor, major: int, planes: int) -> torch.Tensor:
     """The permuted, plane-resampled gradient field of ``volume``."""
-    return slab_mod.slab_resample_grad(
-        slab_mod.permute_gradient(slab_mod.gradient_volume(volume), major), planes
-    ).contiguous()
+    with span("volym.gradient_field"):
+        return slab_mod.slab_resample_grad(
+            slab_mod.permute_gradient(slab_mod.gradient_volume(volume), major), planes
+        ).contiguous()
 
 
 def _features(camera_matrices, ndc, shape, planes, major, sign, n_plane) -> torch.Tensor:
     """The (N_FEATURES, *shape) per-ray table of the rays through the NDC
     points ``ndc`` (R, 2): a frame's :func:`rays.pixel_ndc` with ``shape``
     (H, W), or a shard's rows of it, laid out as (rows, R / rows)."""
-    origin, dirs = rays_mod.rays_from_ndc(camera_matrices, ndc)
-    entry, exit_ = rays_mod.ray_box_intersection(origin, dirs)
-    feats = features_from_rays(origin, dirs, entry, exit_, planes, major, sign, n_plane=n_plane)
-    return feats.reshape(N_FEATURES, *shape)
+    with span("volym.ray_table"):
+        origin, dirs = rays_mod.rays_from_ndc(camera_matrices, ndc)
+        entry, exit_ = rays_mod.ray_box_intersection(origin, dirs)
+        feats = features_from_rays(origin, dirs, entry, exit_, planes, major, sign, n_plane=n_plane)
+        return feats.reshape(N_FEATURES, *shape)
 
 
 def _cone_features(camera_matrices, ndc, shape, planes, major, sign, n_plane) -> torch.Tensor:
     """The (CONE_FEATURES, *shape) cone table of the rays through ``ndc``
     (as :func:`_features`)."""
-    origin, dirs = rays_mod.rays_from_ndc(camera_matrices, ndc)
-    return cone_features_from_rays(origin, dirs, planes, major, sign, n_plane=n_plane).reshape(CONE_FEATURES, *shape)
+    with span("volym.cone_table"):
+        origin, dirs = rays_mod.rays_from_ndc(camera_matrices, ndc)
+        table = cone_features_from_rays(origin, dirs, planes, major, sign, n_plane=n_plane)
+        return table.reshape(CONE_FEATURES, *shape)
 
 
 def lookahead_active(params: RenderParams) -> bool:
@@ -506,25 +514,26 @@ def grids(scene, camera_matrices, params: RenderParams, differentiable: bool = F
     under coloring, the importance stay in the autograd graph
     (:class:`DiffMarch` quantises the u8 stream itself); the look-ahead's
     levels are built without autograd.  ``axis``: as in :func:`_layout`."""
-    if differentiable:
-        major, sign, planes, u8 = _layout(scene, camera_matrices, params, axis)
-        vol_perm = slab_mod.slab_resample(slab_mod.permute_volume(scene.volume, major), planes)
-        lut = scene.tf_lut
-    else:
-        major, sign, planes, u8 = _layout(scene, camera_matrices, params.replace(camera_grads=False), axis)
-        if u8:
-            vol_perm = slab_mod.permute_volume(u8_grid(scene), major)
-        else:
+    with span("volym.grids"):
+        if differentiable:
+            major, sign, planes, u8 = _layout(scene, camera_matrices, params, axis)
             vol_perm = slab_mod.slab_resample(slab_mod.permute_volume(scene.volume, major), planes)
-        vol_perm, lut = vol_perm.contiguous(), scene.tf_lut.contiguous()
-    grad_perm = _gradient_perm(scene.volume, major, planes) if params.use_shading else None
-    imp_perm = levels = None
-    if params.use_importance_coloring:
-        imp_perm = importance_perm(scene.importance, major, planes).contiguous()
-    if lookahead_active(params):
-        with torch.no_grad():
-            levels = slab_mod.importance_levels(importance_perm(scene.importance, major, planes))
-    return Grids(major, sign, planes, u8, vol_perm, lut, grad_perm, imp_perm, levels)
+            lut = scene.tf_lut
+        else:
+            major, sign, planes, u8 = _layout(scene, camera_matrices, params.replace(camera_grads=False), axis)
+            if u8:
+                vol_perm = slab_mod.permute_volume(u8_grid(scene), major)
+            else:
+                vol_perm = slab_mod.slab_resample(slab_mod.permute_volume(scene.volume, major), planes)
+            vol_perm, lut = vol_perm.contiguous(), scene.tf_lut.contiguous()
+        grad_perm = _gradient_perm(scene.volume, major, planes) if params.use_shading else None
+        imp_perm = levels = None
+        if params.use_importance_coloring:
+            imp_perm = importance_perm(scene.importance, major, planes).contiguous()
+        if lookahead_active(params):
+            with span("volym.importance_levels"), torch.no_grad():
+                levels = slab_mod.importance_levels(importance_perm(scene.importance, major, planes))
+        return Grids(major, sign, planes, u8, vol_perm, lut, grad_perm, imp_perm, levels)
 
 
 def prepare(scene, camera_matrices, params: RenderParams, height: int, width: int):
@@ -600,13 +609,14 @@ def smooth_backward(
     (``slab_replay.replay_cuda``), so ``scatter_fn`` must read it only
     inside ``steps``, as the fused kernel does; the plain version's ``dd``
     is 0.0 there."""
-    chain = params.camera_grads and params.interpolation == Interpolation.TRILINEAR
-    fused = scatter_fn is voxel_grad.smooth_scatter and feats_grad_fn is feats_grad.feats_grad
-    if chain and fused and feats.device.type == "cuda":
-        return voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, params, vol=vol)
-    d_vol, d_grad, folded = scatter_fn(feats, dd, steps, vol.shape, sign, params, chain)
-    d_feats = feats_grad_fn(feats, vol, folded, sign, params) if chain else None
-    return d_vol, d_grad, d_feats
+    with span("volym.fold"):
+        chain = params.camera_grads and params.interpolation == Interpolation.TRILINEAR
+        fused = scatter_fn is voxel_grad.smooth_scatter and feats_grad_fn is feats_grad.feats_grad
+        if chain and fused and feats.device.type == "cuda":
+            return voxel_grad.fold_scatter_cuda(feats, dd, steps, vol.shape, sign, params, vol=vol)
+        d_vol, d_grad, folded = scatter_fn(feats, dd, steps, vol.shape, sign, params, chain)
+        d_feats = feats_grad_fn(feats, vol, folded, sign, params) if chain else None
+        return d_vol, d_grad, d_feats
 
 
 class DiffMarch(torch.autograd.Function):
@@ -661,26 +671,27 @@ class DiffMarch(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_img):
-        feats, vol, lut, grad_perm, out, dens, gate, imp_perm = ctx.saved_tensors
-        params = ctx.params
-        res = ctx.replay_fn(feats, vol, lut, ctx.sign, params, out, g_img.contiguous(), grad_perm, ctx.u8, dens,
-                            gate, imp_perm)
-        d_feats = d_imp = None
-        if params.camera_grads:
-            *res, d_feats = res
-        if params.use_importance_coloring:
-            d_imp, d_grad, d_lut = res
-            d_vol = torch.zeros(vol.shape, dtype=torch.float32, device=vol.device)
-        elif params.use_gaussian_smoothing:
-            dd, steps, d_lut = res
-            d_vol, d_grad, d_plain = smooth_backward(feats, dd, steps, vol, ctx.sign, params, ctx.scatter_fn,
-                                                     ctx.feats_grad_fn)
-            if d_plain is not None:
-                d_feats = d_feats + d_plain
-        else:
-            d_vol, d_grad, d_lut = res
-        if ctx.u8:
-            d_vol = d_vol * 255.0  # d/d(scaled density) -> d/d(v/255 volume)
+        with span("volym.backward"):
+            feats, vol, lut, grad_perm, out, dens, gate, imp_perm = ctx.saved_tensors
+            params = ctx.params
+            res = ctx.replay_fn(feats, vol, lut, ctx.sign, params, out, g_img.contiguous(), grad_perm, ctx.u8, dens,
+                                gate, imp_perm)
+            d_feats = d_imp = None
+            if params.camera_grads:
+                *res, d_feats = res
+            if params.use_importance_coloring:
+                d_imp, d_grad, d_lut = res
+                d_vol = torch.zeros(vol.shape, dtype=torch.float32, device=vol.device)
+            elif params.use_gaussian_smoothing:
+                dd, steps, d_lut = res
+                d_vol, d_grad, d_plain = smooth_backward(feats, dd, steps, vol, ctx.sign, params, ctx.scatter_fn,
+                                                         ctx.feats_grad_fn)
+                if d_plain is not None:
+                    d_feats = d_feats + d_plain
+            else:
+                d_vol, d_grad, d_lut = res
+            if ctx.u8:
+                d_vol = d_vol * 255.0  # d/d(scaled density) -> d/d(v/255 volume)
         return d_vol, d_lut, d_grad, d_feats, d_imp, None, None, None, None, None, None, None, None
 
 

@@ -31,6 +31,7 @@ from volym_tpu_torch.config import Interpolation, RenderParams
 from volym_tpu_torch.ops import lookahead
 from volym_tpu_torch.render import slab as slab_mod
 from volym_tpu_torch.render.slab import N_FEATURES
+from volym_tpu_torch.tracing import span
 
 #: launches of the CUDA replay kernel in this process (see :func:`replay_cuda`)
 LAUNCHES = 0
@@ -208,7 +209,8 @@ def replay(feats, vol_perm, lut, sign, params, out, g_img, grad_perm=None, u8=Fa
     """The replay backward on the tensors' device: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (no fallback between them).
     ``gate`` is what :func:`lookahead.gate` returns on the same device."""
-    if feats.device.type == "cpu":
-        return slab_mod.replay_slabs(feats, vol_perm, lut, sign, params, out, g_img, grad_perm, u8, dens, gate,
-                                     imp_perm)
-    return replay_cuda(feats, vol_perm, lut, sign, params, out, g_img, grad_perm, u8, dens, gate, imp_perm)
+    with span("volym.replay"):
+        if feats.device.type == "cpu":
+            return slab_mod.replay_slabs(feats, vol_perm, lut, sign, params, out, g_img, grad_perm, u8, dens, gate,
+                                         imp_perm)
+        return replay_cuda(feats, vol_perm, lut, sign, params, out, g_img, grad_perm, u8, dens, gate, imp_perm)

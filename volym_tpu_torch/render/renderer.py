@@ -15,6 +15,7 @@ from volym_tpu_torch.config import RenderParams
 from volym_tpu_torch.ops import feats_grad, lookahead, slab_march, slab_replay, voxel_grad
 from volym_tpu_torch.render import diff, fast, slab
 from volym_tpu_torch.scene import Scene
+from volym_tpu_torch.tracing import span
 
 BACKENDS = ("slab", "slab_cuda", "ray")
 
@@ -87,8 +88,9 @@ def make_renderer(
         from volym_tpu_torch.parallel.mesh import render_sharded
 
         def render(camera_matrices) -> torch.Tensor:
-            return render_sharded(scene, camera_matrices, params, height, width, mesh,
-                                  differentiable=differentiable, backend=backend)
+            with span("volym.render"):
+                return render_sharded(scene, camera_matrices, params, height, width, mesh,
+                                      differentiable=differentiable, backend=backend)
 
         return render
     device = torch.device(device)
@@ -100,7 +102,8 @@ def make_renderer(
         march = diff.render if differentiable else fast.render
 
         def render(camera_matrices) -> torch.Tensor:
-            return march(scene, camera_matrices.to(device), params, height, width)
+            with span("volym.render"):
+                return march(scene, camera_matrices.to(device), params, height, width)
 
         return render
     march_fn, replay_fn, scatter_fn, feats_grad_fn, gate_fn = slab_functions(backend, [device])
@@ -109,16 +112,18 @@ def make_renderer(
     if differentiable:
 
         def render(camera_matrices) -> torch.Tensor:
-            return slab_march.render_diff(
-                scene, camera_matrices, params, height, width, march_fn=march_fn, replay_fn=replay_fn,
-                scatter_fn=scatter_fn, feats_grad_fn=feats_grad_fn, gate_fn=gate_fn,
-            )
+            with span("volym.render"):
+                return slab_march.render_diff(
+                    scene, camera_matrices, params, height, width, march_fn=march_fn, replay_fn=replay_fn,
+                    scatter_fn=scatter_fn, feats_grad_fn=feats_grad_fn, gate_fn=gate_fn,
+                )
 
         return render
 
     def render(camera_matrices) -> torch.Tensor:
-        return slab_march.render(
-            scene, camera_matrices, params, height, width, march_fn=march_fn, gate_fn=gate_fn
-        )
+        with span("volym.render"):
+            return slab_march.render(
+                scene, camera_matrices, params, height, width, march_fn=march_fn, gate_fn=gate_fn
+            )
 
     return render
