@@ -24,8 +24,8 @@ Phases, in order; any failure ends the run with a nonzero exit:
    source, all started together): the march (B1), the replay (B2), the
    voxel-gradient scatters (B3 and B4, one source, fused with the smoothing
    stencil's transpose and without it, and the fused fold with the plain
-   rows' camera chain, B5) and the look-ahead gate (B6 straight and B7
-   cone, one source); print ptxas's registers and spills of every march,
+   rows' camera chain, B5), the look-ahead gate (B6 straight and B7
+   cone, one source) and the per-ray and cone tables (one source); print ptxas's registers and spills of every march,
    replay, gate and scatter kernel (the fold with the chain beside it
    without), and B7's occupancy
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
@@ -82,7 +82,13 @@ Phases, in order; any failure ends the run with a nonzero exit:
    ``cli_default_gaussian``, the flags of ``screenshot`` with no options).
    The march's launch count shows the frames went through it; frame 0 is
    checked against the plain version (bit for bit under smoothing); the
-   kernel and the plain version are timed with CUDA events;
+   kernel and the plain version are timed with CUDA events.  Then the
+   per-ray and cone tables' kernels at 1024x768 against the chain of
+   PyTorch ops they replace (``slab_march.table_chain``), every view x
+   {128, 48 rows} x {per-ray, cone}, bit for bit with NaN in the same
+   places (24), each timed beside the chain.  On this and every later main
+   path the tables' launch counts start at 0 and must read one per-ray
+   table a march and one cone table a cone gate (:func:`read_tables`);
 5. serving with importance look-ahead: the 256^3 teapot stand-in (its
    lobster is important) at 1024x768 through ``make_renderer(...,
    backend="slab_cuda")``, the reference sweep's preset ``BENCHMARK_PARAMS``
@@ -259,7 +265,7 @@ the third-to-last line gives, for every cell, B1's, B6's and B7's ms
 (and each ``--parent`` checkout's, or null) and B1's staged share, with
 B7's occupancy; the second-to-last line is a JSON summary of the kernels
 (B1's and B2's rows with the new modes' times and bounds under
-``modes``); the
+``modes``; the tables' rows with their launches on the main paths); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -304,6 +310,9 @@ KERNELS = {
     "voxel_grad": ("volym_tpu_torch/ops/csrc/voxel_grad.cu", "volym_tpu/ops/slab_bwd_kernel.py:1127"),
     "voxel_grad_shaded": ("volym_tpu_torch/ops/csrc/voxel_grad.cu", "volym_tpu/ops/slab_bwd_kernel.py:1198"),
     "feats_grad": ("volym_tpu_torch/ops/csrc/voxel_grad.cu", "volym_tpu/ops/slab_bwd_kernel.py:968"),
+    # the JAX package builds these two tables with jnp ops, no kernel
+    "ray_table": ("volym_tpu_torch/ops/csrc/ray_table.cu", "volym_tpu/ops/slab_kernel.py:1279"),
+    "cone_table": ("volym_tpu_torch/ops/csrc/ray_table.cu", "volym_tpu/ops/slab_kernel.py:2257"),
 }
 #: the sources to build, one nvcc each: csrc/<name>.cu
 SOURCES = sorted({Path(src).stem for src, _ in KERNELS.values()})
@@ -970,6 +979,72 @@ def launch_counts() -> tuple[int, int, int]:
     return slab_march.LAUNCHES, lookahead.STRAIGHT_LAUNCHES, lookahead.CONE_LAUNCHES
 
 
+def zero_tables() -> None:
+    """Set the per-ray and cone tables' launch counts to 0: a main path
+    starts."""
+    from volym_tpu_torch.ops import ray_table
+
+    ray_table.LAUNCHES = ray_table.CONE_LAUNCHES = 0
+
+
+def read_tables(path: str, marches: int, cone_gates: int) -> tuple[int, int]:
+    """The per-ray and cone tables' kernel launches since :func:`zero_tables`
+    on a main path that launched B1 ``marches`` times and B7 ``cone_gates``
+    times: one per-ray table a march and one cone table a cone gate, or
+    raise (a table built by the chain of PyTorch ops launches none)."""
+    from volym_tpu_torch.ops import ray_table
+
+    got = (ray_table.LAUNCHES, ray_table.CONE_LAUNCHES)
+    if got != (marches, cone_gates):
+        raise AssertionError(f"{path}: (per-ray table, cone table) launches {got}, expected {(marches, cone_gates)}")
+    return got
+
+
+def table_path(dev, full_hw=(FULL_H, FULL_W)) -> dict:
+    """Phase 4b: the per-ray and cone tables' kernels (csrc/ray_table.cu)
+    against their plain version, the chain of PyTorch ops
+    (``slab_march.table_chain``), at full size: every march axis and sign
+    (``ORBITS``), 128 planes with a slice of 128 and of 48 rows, with and
+    without the cone; bit for bit, NaN in the same places.  Then each
+    kernel's ms, the chain's and the bound (a ray reads its NDC point, 8
+    bytes, and writes 15 or 56 float32 rows).  -> {kernel: its row}"""
+    import torch
+
+    from volym_tpu_torch import Camera
+    from volym_tpu_torch.ops import ray_table, slab_march
+    from volym_tpu_torch.render import rays as rays_mod
+    from volym_tpu_torch.render import slab
+
+    h, w = full_hw
+    ndc = rays_mod.pixel_ndc(h, w, dev)
+    cams = [Camera(aspect=w / h, distance=1.3).orbit(a, b, 0.0).matrices().to(dev) for a, b in ORBITS]
+    axes = {slab.dominant_axis(cm) for cm in cams}
+    if len(axes) != 6:
+        raise AssertionError(f"the orbits march along {sorted(axes)}, not every axis and sign")
+    for cm in cams:
+        major, sign = slab.dominant_axis(cm)
+        for n_plane in (128, 48):
+            for cone in (False, True):
+                got = ray_table.table_cuda(cm.inverse_view_proj, cm.position, ndc, 128, major, sign, n_plane,
+                                           cone=cone)
+                want = slab_march.table_chain(cm, ndc, 128, major, sign, n_plane, cone)
+                nan = torch.isnan(want)
+                if not (torch.equal(nan, torch.isnan(got)) and torch.equal(want[~nan], got[~nan])):
+                    raise AssertionError(f"{'cone' if cone else 'per-ray'} table (axis {major}, sign {sign}, "
+                                         f"n_plane {n_plane}) differs from the chain's")
+    cm = cams[0]
+    major, sign = slab.dominant_axis(cm)
+    rows = {}
+    for name, cone, n_rows in (("ray_table", False, slab.N_FEATURES), ("cone_table", True, slab.CONE_FEATURES)):
+        ms = cuda_ms(lambda cone=cone: ray_table.table_cuda(cm.inverse_view_proj, cm.position, ndc, 128, major, sign,
+                                                            128, cone=cone), 20)
+        plain_ms = cuda_ms(lambda cone=cone: slab_march.table_chain(cm, ndc, 128, major, sign, 128, cone), 5)
+        bound_ms, bound_by = bound(h * w * (8 + 4 * n_rows), 0)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"tables at {h}x{w}: kernels == chain bit for bit in {len(cams) * 4} cases; {json.dumps(rows)}")
+    return rows
+
+
 def cli_path(dev, bonsai, full_hw=(FULL_H, FULL_W), fit_side=256, cli_side=FULL_SIDE):
     """Phase 10: the CLI's ``benchmark``, ``fit`` and ``run --live-sweep``,
     the harness's host clock and ``fit_scene``, on ``dev`` (the card; the
@@ -1019,9 +1094,11 @@ def cli_path(dev, bonsai, full_hw=(FULL_H, FULL_W), fit_side=256, cli_side=FULL_
         # counts start at 0 here and are read when it ends: its main path
         out = Path(tmp) / "sweep.csv"
         slab_march.LAUNCHES = lookahead.STRAIGHT_LAUNCHES = lookahead.CONE_LAUNCHES = 0
+        zero_tables()
         records = run_cli(["benchmark", "--trials", "1", "--seconds", "0.25", "--sweep-steps", "0.005",
                            "--output", str(out), *where])
         sweep_launches = launch_counts()
+        sweep_tables = read_tables("cli sweep", sweep_launches[0], sweep_launches[2])
         rows = read_rows(out)
         starts = [c for msg, c in records if msg.startswith("benchmark ")]
         if len(rows) != 7 or len(starts) != 7:
@@ -1132,19 +1209,19 @@ def cli_path(dev, bonsai, full_hw=(FULL_H, FULL_W), fit_side=256, cli_side=FULL_
         rec["live_sweep_png_bytes"] = pngs[0].stat().st_size
 
     rec["wall_s"] = time.perf_counter() - t_phase
-    return rec, sweep_launches
+    return rec, (*sweep_launches, *sweep_tables)
 
 
 def all_launches() -> dict:
     """The launch count of every kernel's wrapper, by the summary's names
     (B3 and B4 as the fused fold-and-scatter and the scatter alone)."""
-    from volym_tpu_torch.ops import feats_grad, lookahead, slab_march, slab_replay, voxel_grad
+    from volym_tpu_torch.ops import feats_grad, lookahead, ray_table, slab_march, slab_replay, voxel_grad
 
     return dict(slab_march=slab_march.LAUNCHES, slab_replay=slab_replay.LAUNCHES,
                 lookahead_straight=lookahead.STRAIGHT_LAUNCHES, lookahead_cone=lookahead.CONE_LAUNCHES,
                 voxel_grad=voxel_grad.FOLD_LAUNCHES + voxel_grad.LAUNCHES,
                 voxel_grad_shaded=voxel_grad.FOLD_SHADED_LAUNCHES + voxel_grad.SHADED_LAUNCHES,
-                feats_grad=feats_grad.LAUNCHES)
+                feats_grad=feats_grad.LAUNCHES, ray_table=ray_table.LAUNCHES, cone_table=ray_table.CONE_LAUNCHES)
 
 
 def zero_launches() -> None:
@@ -1153,6 +1230,7 @@ def zero_launches() -> None:
     slab_march.LAUNCHES = slab_replay.LAUNCHES = feats_grad.LAUNCHES = 0
     lookahead.STRAIGHT_LAUNCHES = lookahead.CONE_LAUNCHES = 0
     voxel_grad.LAUNCHES = voxel_grad.SHADED_LAUNCHES = voxel_grad.FOLD_LAUNCHES = voxel_grad.FOLD_SHADED_LAUNCHES = 0
+    zero_tables()
 
 
 def distributed_path(dev, bonsai, teapot, full_hw=(FULL_H, FULL_W), train_hw=(256, 256), cli_side=FULL_SIDE):
@@ -1358,6 +1436,8 @@ def distributed_path(dev, bonsai, teapot, full_hw=(FULL_H, FULL_W), train_hw=(25
     if cuda and not (all(launches[k] > 0 for k in ("slab_march", "slab_replay", "lookahead_cone", "voxel_grad",
                                                    "feats_grad")) and launches["voxel_grad"] >= launches["feats_grad"]):
         raise AssertionError(f"phase 11 launches: {launches}")
+    if cuda:
+        read_tables("phase 11", launches["slab_march"], launches["lookahead_cone"])
     rec["launches"] = launches
     rec["wall_s"] = time.perf_counter() - t_phase
     return rec, launches
@@ -2168,6 +2248,7 @@ def main(argv=None) -> int:
     frames = {}
     per_config = {}
     slab_march.LAUNCHES = slab_replay.LAUNCHES = 0  # the serving path starts here
+    zero_tables()
     for name, render in renderers.items():
         before = slab_march.LAUNCHES
         cam = Camera(aspect=FULL_W / FULL_H)
@@ -2181,6 +2262,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         per_config[name] = slab_march.LAUNCHES - before
     serving_launches = slab_march.LAUNCHES  # the serving path ends here
+    serving_tables = read_tables("serving", serving_launches, 0)
     if slab_replay.LAUNCHES:
         raise AssertionError("the serving path launched the replay")
     for name, n in per_config.items():
@@ -2232,6 +2314,10 @@ def main(argv=None) -> int:
         )
         log(f"{name}: {json.dumps(results[name])}")
 
+    # phase 4b: the per-ray and cone tables' kernels against the chain at
+    # full size, bit for bit, and their times
+    tables = table_path(dev)
+
     # phase 5: serving with importance look-ahead at full size
     t0 = time.perf_counter()
     teapot = Scene.synthetic("teapot", side=FULL_SIDE, device=dev)
@@ -2252,6 +2338,7 @@ def main(argv=None) -> int:
     la_cams, la_frames, la_counts = {}, {}, {}
     # the look-ahead serving path starts here
     slab_march.LAUNCHES = slab_replay.LAUNCHES = lookahead.STRAIGHT_LAUNCHES = lookahead.CONE_LAUNCHES = 0
+    zero_tables()
     for name, render in la_renderers.items():
         before = launch_counts()
         cam = Camera(aspect=FULL_W / FULL_H)
@@ -2263,6 +2350,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         la_counts[name] = tuple(a - b for a, b in zip(launch_counts(), before))
     la_launches = launch_counts()  # the look-ahead serving path ends here
+    la_tables = read_tables("look-ahead serving", la_launches[0], la_launches[2])
     if slab_replay.LAUNCHES:
         raise AssertionError("the look-ahead serving path launched the replay")
     want_counts = {"base": (FRAMES, 0, 0), "importance": (FRAMES, FRAMES, 0),
@@ -2385,6 +2473,7 @@ def main(argv=None) -> int:
     mode_frames, mode_counts = {}, {}
     # the coloring and first-hit serving path starts here
     slab_march.LAUNCHES = slab_replay.LAUNCHES = lookahead.STRAIGHT_LAUNCHES = lookahead.CONE_LAUNCHES = 0
+    zero_tables()
     cam = Camera(aspect=FULL_W / FULL_H).orbit(2.0, 0.0, 0.0)
     for name, render in mode_renderers.items():
         before = launch_counts()
@@ -2395,6 +2484,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         mode_counts[name] = tuple(a - b for a, b in zip(launch_counts(), before))
     mode_launches = launch_counts()  # the coloring and first-hit serving path ends here
+    mode_tables = read_tables("coloring / first-hit serving", mode_launches[0], mode_launches[2])
     if slab_replay.LAUNCHES or any(c != (FRAMES, 0, 0) for c in mode_counts.values()):
         raise AssertionError(f"coloring / first-hit serving: (march, straight, cone) launches {mode_counts}")
     log(f"coloring / first-hit serving: {mode_launches[0]} march launches for {len(mode_configs) * FRAMES} frames")
@@ -2463,6 +2553,7 @@ def main(argv=None) -> int:
         trainers[(h, w)] = (s, cm, make_renderer(s, train_p, h, w, backend="slab_cuda", device=dev, differentiable=True))
     step0 = {}
     slab_march.LAUNCHES = slab_replay.LAUNCHES = 0  # the training path starts here
+    zero_tables()
     for (h, w), (s, cm, render) in trainers.items():
         for i in range(TRAIN_STEPS):
             s.volume.grad = s.tf_lut.grad = None
@@ -2472,6 +2563,7 @@ def main(argv=None) -> int:
                 step0[(h, w)] = (img.detach().clone(), s.volume.grad.clone(), s.tf_lut.grad.clone())
         torch.cuda.synchronize()
     train_launches = (slab_march.LAUNCHES, slab_replay.LAUNCHES)  # the training path ends here
+    train_tables = read_tables("training", train_launches[0], 0)
     n_steps = TRAIN_STEPS * len(TRAIN_SIZES)
     if train_launches != (n_steps, n_steps):
         raise AssertionError(f"training: {train_launches} march/replay launches for {n_steps} steps")
@@ -2604,6 +2696,7 @@ def main(argv=None) -> int:
     # the smoothed training path starts here
     slab_march.LAUNCHES = slab_replay.LAUNCHES = voxel_grad.LAUNCHES = voxel_grad.SHADED_LAUNCHES = 0
     voxel_grad.FOLD_LAUNCHES = voxel_grad.FOLD_SHADED_LAUNCHES = 0
+    zero_tables()
     with NoTranspose():
         for key, (p, s, cm, render) in gtrainers.items():
             before = gcounts()
@@ -2616,6 +2709,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             gper[key] = tuple(a - b for a, b in zip(gcounts(), before))
     gtrain_launches = gcounts()  # the smoothed training path ends here
+    gtrain_tables = read_tables("smoothed training", gtrain_launches[0], 0)
     for (name, h, w), launched in gper.items():
         shaded = gauss_train[name].use_shading
         want = (GAUSS_TRAIN_STEPS, GAUSS_TRAIN_STEPS, 0 if shaded else GAUSS_TRAIN_STEPS,
@@ -2828,6 +2922,7 @@ def main(argv=None) -> int:
     # the camera-gradient training path starts here
     slab_march.LAUNCHES = slab_replay.LAUNCHES = voxel_grad.LAUNCHES = voxel_grad.SHADED_LAUNCHES = 0
     voxel_grad.FOLD_LAUNCHES = voxel_grad.FOLD_SHADED_LAUNCHES = feats_grad.LAUNCHES = 0
+    zero_tables()
     with NoTranspose():
         for name, (p, s, render) in ctrainers.items():
             before = ccounts()
@@ -2842,6 +2937,8 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             cper[name] = tuple(a - b for a, b in zip(ccounts(), before))
     ctrain_launches = ccounts()  # the camera-gradient training path ends here
+    # camera gradients too: the kernel's table (slab_march.KernelTable)
+    ctrain_tables = read_tables("camera-gradient training", ctrain_launches[0], 0)
     for name, launched in cper.items():
         p = cam_train[name]
         shaded, tri = p.use_shading, p.interpolation.value == "trilinear"
@@ -3065,6 +3162,7 @@ def main(argv=None) -> int:
     slab_march.LAUNCHES = slab_replay.LAUNCHES = lookahead.STRAIGHT_LAUNCHES = lookahead.CONE_LAUNCHES = 0
     voxel_grad.LAUNCHES = voxel_grad.SHADED_LAUNCHES = voxel_grad.FOLD_LAUNCHES = voxel_grad.FOLD_SHADED_LAUNCHES = 0
     feats_grad.LAUNCHES = 0
+    zero_tables()
     for name, p in mode_train.items():
         before = mcounts()
         for i in range(MODE_STEPS):
@@ -3077,6 +3175,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         mper[name] = tuple(a - b for a, b in zip(mcounts(), before))
     mtrain_launches = mcounts()  # the new modes' training path ends here
+    mtrain_tables = read_tables("mode training", mtrain_launches[0], mtrain_launches[3])
     for name, p in mode_train.items():
         cone = p.use_cone_importance_check and not p.use_importance_coloring
         straight = p.use_importance_rendering and not cone and not p.use_importance_coloring
@@ -3337,7 +3436,13 @@ def main(argv=None) -> int:
     rows["slab_replay"]["launches"] += gtrain_launches[1] + ctrain_launches[1] + mtrain_launches[1]
     rows["lookahead_straight"]["launches"] += mtrain_launches[2]
     rows["lookahead_cone"]["launches"] += mtrain_launches[3]
-    for kernel, n in zip(("slab_march", "lookahead_straight", "lookahead_cone"), sweep_launches):
+    # the tables' kernels: one launch a march and one a cone gate on every
+    # main path (read_tables)
+    path_tables = (serving_tables, la_tables, mode_tables, train_tables, gtrain_tables, ctrain_tables, mtrain_tables)
+    for kernel, n in zip(("ray_table", "cone_table"), map(sum, zip(*path_tables))):
+        rows[kernel] = dict(launches=n, **tables[kernel])
+    for kernel, n in zip(("slab_march", "lookahead_straight", "lookahead_cone", "ray_table", "cone_table"),
+                         sweep_launches):
         rows[kernel]["launches"] += n
     # the modes of this slice: B1's coloring and first-hit frames, and B1
     # and B2 in the gated and coloring training steps, each with its bound

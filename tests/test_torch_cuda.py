@@ -1,12 +1,15 @@
 """The CUDA march, replay (with its camera chain and its step range),
 voxel-gradient scatter (fused with the smoothing stencil's transpose, with
-the plain rows' camera chain fused into that, and without it) and
-look-ahead gate kernels against their plain PyTorch versions, on the card.
+the plain rows' camera chain fused into that, and without it), look-ahead
+gate and per-ray and cone table kernels against their plain PyTorch
+versions, on the card.
 
 Marked ``cuda``: these skip where ``torch.cuda.is_available()`` is false.
 Run them on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py -q -m cuda``.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -14,7 +17,9 @@ import torch
 
 from chip_smoke import three_level_scene
 from volym_tpu_torch import Camera, RenderParams, Scene, convert, parity
-from volym_tpu_torch.ops import feats_grad, lookahead, slab_march, slab_replay, voxel_grad
+from volym_tpu_torch.camera import camera_matrices
+from volym_tpu_torch.ops import feats_grad, lookahead, ray_table, slab_march, slab_replay, voxel_grad
+from volym_tpu_torch.render import rays as rays_mod
 from volym_tpu_torch.render import slab
 from volym_tpu_torch.render.renderer import make_renderer
 
@@ -1182,3 +1187,165 @@ def test_two_nccl_ranks_on_one_card_raise(device, tmp_path):
                 p.communicate()
     for p, out in zip(procs, outs):
         assert p.returncode == 3 and "one rank a card" in out, out[-2000:]
+
+
+# --- the per-ray and cone tables' kernels (csrc/ray_table.cu) ---------------
+
+#: cameras whose rays have exactly zero direction components: through the
+#: x = 1 and x = 0 faces (0/0 in the ray-box test: NaN entry and exit), on
+#: the z = 1 face, straight down y (a vertical ray: the cone's right vector
+#: is zero), inside the box, and along the x = y = 0 edge
+EDGE_CAMERAS = [
+    ((1.0, 0.5, 2.0), (1.0, 0.5, 0.0), (0.0, 1.0, 0.0)),
+    ((0.0, 0.5, 2.0), (0.0, 0.5, 0.0), (0.0, 1.0, 0.0)),
+    ((0.5, 0.5, 1.0), (0.5, 0.5, 0.0), (0.0, 1.0, 0.0)),
+    ((0.5, 2.0, 0.5), (0.5, 0.0, 0.5), (0.0, 0.0, 1.0)),
+    ((0.5, 0.5, 0.5), (0.5, 0.5, 2.0), (0.0, 1.0, 0.0)),
+    ((0.0, 0.0, 2.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0)),
+]
+
+
+def _same_bits(want, got):
+    """torch.equal with NaN in the same places."""
+    nan = torch.isnan(want)
+    assert torch.equal(nan, torch.isnan(got)), "NaN in other places"
+    assert torch.equal(want[~nan], got[~nan])
+
+
+def _tables(cm, ndc, planes, major, sign, n_plane, cone):
+    got = ray_table.table_cuda(cm.inverse_view_proj, cm.position, ndc, planes, major, sign, n_plane, cone=cone)
+    want = slab_march.table_chain(cm, ndc, planes, major, sign, n_plane, cone)
+    torch.cuda.synchronize()
+    return want, got
+
+
+@pytest.mark.parametrize("cone", [False, True])
+@pytest.mark.parametrize("n_plane", [None, 48])
+@pytest.mark.parametrize("hw", [(H, W), (7, 5), (768, 1024)])
+@pytest.mark.parametrize("h,v", ORBITS)
+def test_ray_tables_match_chain(device, h, v, hw, n_plane, cone):
+    """Both kernels bit for bit with the chain of PyTorch ops on the card,
+    on every march axis and sign (``ORBITS``), at 128 planes with a slice of
+    ``planes`` rows and of 48 rows."""
+    height, width = hw
+    cm = Camera(aspect=width / height, distance=1.3).orbit(h, v, 0.0).matrices().to(device)
+    major, sign = slab.dominant_axis(cm)
+    _same_bits(*_tables(cm, rays_mod.pixel_ndc(height, width, device), 128, major, sign, n_plane, cone))
+
+
+@pytest.mark.parametrize("cone", [False, True])
+@pytest.mark.parametrize("hw", [(8, 8), (6, 10), (48, 64)])
+@pytest.mark.parametrize("eye,target,up", EDGE_CAMERAS)
+def test_ray_tables_edge_rays(device, eye, target, up, hw, cone):
+    """Rays with exactly zero direction components, a vertical ray and an
+    origin on a box face: bit for bit, NaN in the chain's places."""
+    height, width = hw
+    cm = camera_matrices(eye, target, up, math.radians(60.0), width / height, 0.01, 10.0, device=device)
+    major, sign = slab.dominant_axis(cm)
+    ndc = rays_mod.pixel_ndc(height, width, device)
+    dirs = rays_mod.rays_from_ndc(cm, ndc)[1]
+    want, got = _tables(cm, ndc, 64, major, sign, None, cone)
+    _same_bits(want, got)
+    if hw == (8, 8):  # the centre column's rays run in the plane of the faces
+        assert bool((dirs == 0.0).any())
+        if eye[0] in (0.0, 1.0) and not cone:
+            assert bool(torch.isnan(want).any())
+
+
+@pytest.mark.parametrize("cone", [False, True])
+@pytest.mark.parametrize("n", [4, 7])
+def test_ray_tables_of_shards(device, n, cone):
+    """A shard's NDC rows, laid out as ``render_sharded`` lays them ((H/n,
+    W) or (1, R/n)): the whole frame's columns, bit for bit."""
+    from volym_tpu_torch.parallel.mesh import _shard_shape
+
+    height, width = 36, 56  # 4 divides the rows, 7 only the rays
+    cm = Camera(aspect=width / height, distance=1.3).orbit(120.0, 10.0, 0.0).matrices().to(device)
+    major, sign = slab.dominant_axis(cm)
+    ndc = rays_mod.pixel_ndc(height, width, device)
+    frame = ray_table.table_cuda(cm.inverse_view_proj, cm.position, ndc, 128, major, sign, 64, cone=cone)
+    per, shape = height * width // n, _shard_shape(height, width, n)
+    assert shape == ((height // n, width) if n == 4 else (1, per))
+    feats = slab_march._cone_features if cone else slab_march._features
+    for k in range(n):
+        rows = slice(k * per, (k + 1) * per)
+        got = feats(cm, ndc[rows], shape, 128, major, sign, 64)
+        torch.cuda.synchronize()
+        _same_bits(frame[:, rows], got.reshape(frame.shape[0], per))
+
+
+def _table_counts():
+    return ray_table.LAUNCHES, ray_table.CONE_LAUNCHES
+
+
+@pytest.mark.parametrize("cone", [False, True])
+def test_renderer_counts_table_launches(scene3, device, cone):
+    """A frame: one launch of the per-ray table's kernel and, with the cone
+    look-ahead, one of the cone table's."""
+    p = _lookahead_params("u8", cone)
+    render = make_renderer(scene3, p, H, W, backend="slab_cuda", device=device)
+    before = _table_counts()
+    render(Camera(aspect=W / H, distance=1.3).orbit(30.0, 20.0, 0.0).matrices())
+    assert _table_counts() == (before[0] + 1, before[1] + cone)
+
+
+@pytest.mark.parametrize("camera_grads", [False, True])
+def test_differentiable_renderer_counts_table_launches(scene, device, camera_grads):
+    """A training step launches the per-ray table's kernel once, with
+    camera gradients too: then through ``KernelTable``, whose backward
+    carries the gradient to the camera."""
+    p = RenderParams(use_gaussian_smoothing=False, camera_grads=camera_grads)
+    vol = scene.volume.clone().requires_grad_(True)
+    render = make_renderer(Scene(vol, scene.importance, scene.tf_lut), p, H, W, backend="slab_cuda", device=device,
+                           differentiable=True)
+    cm = Camera(aspect=W / H, distance=1.3).orbit(30.0, 20.0, 0.0).matrices().to(device)
+    cm.inverse_view_proj.requires_grad_(True)
+    cm.position.requires_grad_(True)
+    before = _table_counts()
+    render(cm).sum().backward()
+    assert _table_counts() == (before[0] + 1, before[1])
+    assert (cm.position.grad is not None) == camera_grads
+    if camera_grads:
+        assert bool(torch.isfinite(cm.position.grad).all() and torch.isfinite(cm.inverse_view_proj.grad).all())
+
+
+@pytest.mark.parametrize("cone", [False, True])
+@pytest.mark.parametrize("hw", [(H, W), (768, 1024)])
+@pytest.mark.parametrize("h,v", ORBITS)
+def test_kernel_table_gradients_match_chain(device, h, v, hw, cone):
+    """Where the table carries camera gradients: the kernel's values in the
+    forward (one launch, no chain), and the chain's gradients of the camera
+    bit for bit in the backward."""
+    height, width = hw
+    cm = Camera(aspect=width / height, distance=1.3).orbit(h, v, 0.0).matrices().to(device)
+    major, sign = slab.dominant_axis(cm)
+    ndc = rays_mod.pixel_ndc(height, width, device)
+    rows = slab.CONE_FEATURES if cone else slab.N_FEATURES
+    d_table = torch.randn((rows, height * width), device=device, generator=torch.Generator(device).manual_seed(5))
+    out = []
+    for kernel in (False, True):
+        ivp = cm.inverse_view_proj.clone().requires_grad_(True)
+        pos = cm.position.clone().requires_grad_(True)
+        cam = type(cm)(cm.view, cm.proj, ivp, pos)
+        before = _table_counts()
+        if kernel:
+            table = slab_march._table(cam, ndc, 128, major, sign, 48, cone)
+            assert _table_counts() == (before[0] + (not cone), before[1] + cone)
+        else:
+            table = slab_march.table_chain(cam, ndc, 128, major, sign, 48, cone)
+        out.append((table.detach(), *torch.autograd.grad(table, (ivp, pos), d_table)))
+    torch.cuda.synchronize()
+    for want, got in zip(*out):
+        _same_bits(want, got)
+
+
+def test_ray_table_checks_inputs(device):
+    cm = Camera().matrices().to(device)
+    ndc = rays_mod.pixel_ndc(4, 6, device)
+    ivp, pos = cm.inverse_view_proj, cm.position
+    with pytest.raises(ValueError, match="float32"):
+        ray_table.table_cuda(ivp.double(), pos, ndc, 64, 2, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ray_table.table_cuda(ivp.t(), pos, ndc, 64, 2, 1)
+    with pytest.raises(ValueError, match="on cpu"):
+        ray_table.table_cuda(ivp, pos.cpu(), ndc, 64, 2, 1)

@@ -15,7 +15,8 @@ in batches of steps whose slab windows it stages in shared memory
 (:func:`stage_plan` transcribes how it picks them), and needs none of the
 TPU's machinery: no pair grid, tile order, window ladders, grouped LUT or
 VMEM sizing.  What it keeps is the semantics: the per-ray affine table
-computed once in torch (:func:`features_from_rays`), the subtexel snap, the
+computed once a frame (:func:`features_from_rays`; on a GPU one launch of
+:mod:`volym_tpu_torch.ops.ray_table`'s kernel), the subtexel snap, the
 masks, the smoothing stencil and the u8 scaled density domain.
 
 :func:`march` dispatches on the device of its tensors: CPU tensors go to
@@ -26,12 +27,13 @@ tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
 from volym_tpu_torch.config import Interpolation, RenderParams
-from volym_tpu_torch.ops import feats_grad, lookahead, slab_replay, voxel_grad
+from volym_tpu_torch.ops import feats_grad, lookahead, ray_table, slab_replay, voxel_grad
 from volym_tpu_torch.render import rays as rays_mod
 from volym_tpu_torch.render import slab as slab_mod
 from volym_tpu_torch.render.golden import CONE_SAMPLES, cone_directions
@@ -417,24 +419,76 @@ def _gradient_perm(volume: torch.Tensor, major: int, planes: int) -> torch.Tenso
         ).contiguous()
 
 
+def table_chain(camera_matrices, ndc, planes, major, sign, n_plane, cone: bool = False) -> torch.Tensor:
+    """The (N_FEATURES, R) per-ray table, or with ``cone`` the
+    (CONE_FEATURES, R) cone table, of the rays through ``ndc`` (R, 2), by
+    the chain of PyTorch ops: :func:`rays.rays_from_ndc`, then
+    :func:`rays.ray_box_intersection` and :func:`features_from_rays`, or
+    :func:`cone_features_from_rays`.  The plain version of
+    :mod:`ray_table`'s kernels, and what :class:`KernelTable`'s backward
+    differentiates."""
+    origin, dirs = rays_mod.rays_from_ndc(camera_matrices, ndc)
+    if cone:
+        return cone_features_from_rays(origin, dirs, planes, major, sign, n_plane=n_plane)
+    entry, exit_ = rays_mod.ray_box_intersection(origin, dirs)
+    return features_from_rays(origin, dirs, entry, exit_, planes, major, sign, n_plane=n_plane)
+
+
+class KernelTable(torch.autograd.Function):
+    """The kernel's table with the chain's gradients.  Forward: one launch of
+    :func:`ray_table.table_cuda`.  Backward: :func:`table_chain` re-run under
+    autograd on the saved camera and NDC points, and its vector-Jacobian
+    product with the table's cotangent, so the camera's gradients are the
+    chain's and the forward keeps no graph of it."""
+
+    @staticmethod
+    def forward(ctx, inverse_view_proj, position, ndc, camera_matrices, planes, major, sign, n_plane, cone):
+        ctx.save_for_backward(inverse_view_proj, position, ndc)
+        ctx.args = (camera_matrices, planes, major, sign, n_plane, cone)
+        return ray_table.table_cuda(inverse_view_proj.contiguous(), position.contiguous(), ndc.contiguous(), planes,
+                                    major, sign, n_plane, cone=cone)
+
+    @staticmethod
+    def backward(ctx, d_table):
+        camera_matrices, planes, major, sign, n_plane, cone = ctx.args
+        ivp, pos, ndc = (t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad))
+        cm = dataclasses.replace(camera_matrices, inverse_view_proj=ivp, position=pos)
+        with torch.enable_grad():
+            table = table_chain(cm, ndc, planes, major, sign, n_plane, cone)
+        wanted = [t for t in (ivp, pos, ndc) if t.requires_grad]
+        grads = iter(torch.autograd.grad(table, wanted, d_table, allow_unused=True))
+        return (*(next(grads) if t.requires_grad else None for t in (ivp, pos, ndc)), *(None,) * 6)
+
+
+def _table(camera_matrices, ndc, planes, major, sign, n_plane, cone: bool) -> torch.Tensor:
+    """:func:`table_chain`'s table, built as :func:`ray_table.route` says:
+    by the chain on CPU tensors, by one launch of :mod:`ray_table`'s kernel
+    on CUDA tensors (through :class:`KernelTable` where the table carries
+    camera gradients)."""
+    ivp, pos = camera_matrices.inverse_view_proj, camera_matrices.position
+    how = ray_table.route(ndc.device, torch.is_grad_enabled(), any(t.requires_grad for t in (ivp, pos, ndc)))
+    if how == "chain":
+        return table_chain(camera_matrices, ndc, planes, major, sign, n_plane, cone)
+    if how == "kernel_vjp":
+        return KernelTable.apply(ivp, pos, ndc, camera_matrices, planes, major, sign, n_plane, cone)
+    return ray_table.table_cuda(ivp.contiguous(), pos.contiguous(), ndc.contiguous(), planes, major, sign, n_plane,
+                                cone=cone)
+
+
 def _features(camera_matrices, ndc, shape, planes, major, sign, n_plane) -> torch.Tensor:
     """The (N_FEATURES, *shape) per-ray table of the rays through the NDC
     points ``ndc`` (R, 2): a frame's :func:`rays.pixel_ndc` with ``shape``
-    (H, W), or a shard's rows of it, laid out as (rows, R / rows)."""
+    (H, W), or a shard's rows of it, laid out as (rows, R / rows)
+    (:func:`_table`)."""
     with span("volym.ray_table"):
-        origin, dirs = rays_mod.rays_from_ndc(camera_matrices, ndc)
-        entry, exit_ = rays_mod.ray_box_intersection(origin, dirs)
-        feats = features_from_rays(origin, dirs, entry, exit_, planes, major, sign, n_plane=n_plane)
-        return feats.reshape(N_FEATURES, *shape)
+        return _table(camera_matrices, ndc, planes, major, sign, n_plane, cone=False).reshape(N_FEATURES, *shape)
 
 
 def _cone_features(camera_matrices, ndc, shape, planes, major, sign, n_plane) -> torch.Tensor:
     """The (CONE_FEATURES, *shape) cone table of the rays through ``ndc``
     (as :func:`_features`)."""
     with span("volym.cone_table"):
-        origin, dirs = rays_mod.rays_from_ndc(camera_matrices, ndc)
-        table = cone_features_from_rays(origin, dirs, planes, major, sign, n_plane=n_plane)
-        return table.reshape(CONE_FEATURES, *shape)
+        return _table(camera_matrices, ndc, planes, major, sign, n_plane, cone=True).reshape(CONE_FEATURES, *shape)
 
 
 def lookahead_active(params: RenderParams) -> bool:

@@ -39,6 +39,12 @@ GAUSSIAN_SIGMA = 1.5
 #: cone look-ahead constants (``wgsl:112-113``)
 CONE_SAMPLES = 8
 CONE_ANGLE = 0.2
+#: each cone direction's offsets along the right and up vectors, cos and sin
+#: of its angle times CONE_ANGLE; the angle uses 3.14159 (``wgsl:99``)
+CONE_OFFSETS = tuple(
+    (math.cos(angle) * CONE_ANGLE, math.sin(angle) * CONE_ANGLE)
+    for angle in ((s / CONE_SAMPLES) * 2.0 * 3.14159 for s in range(CONE_SAMPLES))
+)
 #: importance at or above which material counts as important ahead, and at
 #: or above which the current sample counts as opaque (``wgsl:133, 291``)
 IMPORTANT_AHEAD_THRESHOLD = 0.5
@@ -77,16 +83,14 @@ def cone_directions(main_dir: torch.Tensor) -> torch.Tensor:
 
     As in the reference, ``right = normalize(cross(main, (0, 1, 0)))``,
     with the normalisation guarded by 1e-12 for a vertical ray, and the
-    angle uses 3.14159 (``wgsl:99``)."""
+    offsets of :data:`CONE_OFFSETS`."""
     up = torch.zeros_like(main_dir)
     up[:, 1] = 1.0
     right = _cross(main_dir, up)
     right = right / torch.clamp(norm3(right), min=1e-12)
     new_up = _cross(main_dir, right)
     dirs = []
-    for s in range(CONE_SAMPLES):
-        angle = (s / CONE_SAMPLES) * 2.0 * 3.14159
-        off0, off1 = math.cos(angle) * CONE_ANGLE, math.sin(angle) * CONE_ANGLE
+    for off0, off1 in CONE_OFFSETS:
         d = main_dir + right * off0 + new_up * off1
         dirs.append(d / norm3(d))
     return torch.stack(dirs, dim=-2)

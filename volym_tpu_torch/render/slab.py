@@ -127,14 +127,19 @@ def _full(like: torch.Tensor, value: float) -> torch.Tensor:
     return torch.full_like(like, value)
 
 
+def slab_origin(n_slabs: int, sign: int) -> tuple[float, float]:
+    """(sz, z0): the march axis's step between planes, signed, and the
+    first plane's centre on it, as Python floats."""
+    return (1.0 / n_slabs) * sign, (0.5 / n_slabs) if sign > 0 else ((n_slabs - 0.5) / n_slabs)
+
+
 def ray_affine(origin, dirs, n_slabs: int, major: int, sign: int, n_plane: int | None = None):
     """Per-ray affine coefficients of the slab march, ``t(j) = ts*j + tb``,
     ``rows(j) = rs*j + rb``, ``cols(j) = cs*j + cb``, in the JAX package's
     float32 operation order (the snap decisions depend on every bit)."""
     _, row_comp, col_comp = _AXIS_LAYOUT[major]
     o_m, d_m = origin[major], dirs[:, major]
-    sz = (1.0 / n_slabs) * sign
-    z0 = (0.5 / n_slabs) if sign > 0 else ((n_slabs - 0.5) / n_slabs)
+    sz, z0 = slab_origin(n_slabs, sign)
     safe_dm = torch.where(torch.abs(d_m) > 1e-12, d_m, _full(d_m, 1e-12))
     ts = _full(d_m, sz) / safe_dm
     tb = (z0 - o_m) / safe_dm
