@@ -22,6 +22,15 @@ against the reference's, and two witnesses of how far rounding alone moves
 the later steps: the reference with ``torch.optim.Adam`` in place of its
 own Adam, and the reference in blocks of 128 image rows in place of 256
 (its gradients' atomics add in another order).
+
+A job over one process per card (``fit_ranks``) runs as the benchmark runs
+it, each seed a run of every rank, with ``--ranks`` in place of the mix's
+count where given, and its faults planted in every rank
+(:func:`plant_rank_fault`): ``skip`` (the last rank leaves the exchange
+of the volume's gradient out and steps on its own rows' gradient),
+``half`` (the upper half of the ranks leave their rows out, the mean taken
+over the rest) and ``altered`` (one entry of the last rank's frame altered
+where it is produced).
 """
 
 from __future__ import annotations
@@ -62,6 +71,97 @@ def _wrap_render(job, fault: str):
         raise ValueError(fault)
 
     job.render = faulty
+
+
+#: the function a fit_ranks run calls in every rank to plant a fault
+FAULT_HOOK = "perfbench.calibrate:plant_rank_fault"
+
+
+def plant_rank_fault(job, fault: str):
+    """Break one rank's timed path underneath (``job`` a
+    ``cells.RanksFitJob``): ``skip``, ``half``, ``altered`` as the module
+    says; ``stale``, the optimizer skips its update; ``kill``, the last rank
+    is killed at its third window step."""
+    import os
+    import signal
+
+    import torch.distributed as dist
+
+    rank, world = job.rank, job.world
+    last = rank == world - 1
+    if fault == "stale":
+        job.opt.step = lambda *a, **k: None
+    elif fault == "kill":
+        step = job._step
+
+        def killed(i):
+            if last and i >= job.offset + 2:
+                os.kill(os.getpid(), signal.SIGKILL)
+            return step(i)
+
+        job._step = killed
+    elif fault in ("skip", "half"):
+        all_reduce, n_volume = dist.all_reduce, job.volume.numel()
+        kept = max(1, world // 2)
+
+        def faulty(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+            if group is None and fault == "skip" and last and not async_op and t.numel() == n_volume:
+                return all_reduce(t.clone(), op=op, group=group, async_op=async_op)
+            if group is None and fault == "half":
+                t.mul_(world / kept if rank < kept else 0.0)
+            return all_reduce(t, op=op, group=group, async_op=async_op)
+
+        dist.all_reduce = faulty
+    elif fault == "altered":
+        from volym_tpu_torch.ops import slab_march
+
+        render = slab_march.render_rays_diff
+
+        def altered(*args, **kwargs):
+            out = render(*args, **kwargs)
+            if not last:
+                return out
+            flat = out.reshape(-1, 4)
+            bump = torch.zeros_like(flat)
+            bump[flat.shape[0] // 2, 0] = 0.25
+            return (flat + bump).reshape(out.shape)
+
+        slab_march.render_rays_diff = altered
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
+def control_notes(job) -> dict:
+    """The control's numbers for a ``fit_ranks`` run, read after its check."""
+    t0 = time.perf_counter()
+    return {"control": job.numbers(program=torch.bfloat16), "control_s": time.perf_counter() - t0}
+
+
+def one_ranks(cell: spec.Cell, seed: int, seconds: float, fault: str | None, device: str, backend: str,
+              overrides: dict | None = None, ranks: int | None = None) -> dict:
+    """A ``fit_ranks`` cell's readings: a whole run of every rank, ``fault``
+    planted in each (:func:`plant_rank_fault`), then, on a sound run, the
+    control."""
+    import torch.distributed as dist
+
+    from volym_tpu_torch.ops import slab_march
+
+    from perfbench import ranks as ranks_mod
+
+    t0 = time.perf_counter()
+    cfg = dict(cell.config, **(overrides or {}))
+    planted = dist.all_reduce, slab_march.render_rays_diff  # rank 0 is this process: undo its fault after
+    try:
+        result, notes = ranks_mod.run_cell(cell, cfg, seed, seconds, False, device, backend, t0, overrides=overrides,
+                                           world=ranks, fault=[FAULT_HOOK, fault] if fault else None,
+                                           extra=None if fault else control_notes)
+    finally:
+        dist.all_reduce, slab_march.render_rays_diff = planted
+    out = {"seed": seed, "fault": fault, "ranks": ranks, "run_s": time.perf_counter() - t0,
+           "numbers": {k: c["value"] for k, c in result["checks"].items()}, "metrics": result["metrics"],
+           "memory_peak_bytes": result["device"]["memory_peak_bytes"]}
+    out.update(notes)
+    return out
 
 
 def one(cell: spec.Cell, seed: int, seconds: float, fault: str | None, device: str, backend: str,
@@ -161,15 +261,21 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--faults", type=int, nargs="*", default=[])
     ap.add_argument("--seconds", type=float, default=1.5)
+    ap.add_argument("--ranks", type=int, help="a fit_ranks cell's processes in place of its mix's")
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
     cell = spec.load_cell(args.workload, ROOT)
     rows = []
-    fault_names = ["half", "altered"] + ([] if cell.traffic["loop"] == "fit" else ["stale"])
+    loop = cell.traffic["loop"]
+    fault_names = {"fit": ["half", "altered"], "fit_ranks": ["skip", "half", "altered"]}.get(
+        loop, ["half", "altered", "stale"])
     runs = [(s, None) for s in args.seeds] + [(s, f) for s in args.faults for f in fault_names]
     for seed, fault in runs:
         t0 = time.perf_counter()
-        row = one(cell, seed, args.seconds, fault, "cuda", "slab_cuda")
+        if loop == "fit_ranks":
+            row = one_ranks(cell, seed, args.seconds, fault, "cuda", "slab_cuda", ranks=args.ranks)
+        else:
+            row = one(cell, seed, args.seconds, fault, "cuda", "slab_cuda")
         row["wall_s"] = time.perf_counter() - t0
         row["host_maxrss_gib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
         row["card_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30

@@ -1,4 +1,4 @@
-"""Driving the program: the two loops a traffic mix can ask for, each a job
+"""Driving the program: the loops a traffic mix can ask for, each a job
 that sets up from the seed, issues one frame or one step at a time, and
 compares what it produced with the plain reference.
 
@@ -7,13 +7,22 @@ compares what it produced with the plain reference.
 ``fit`` (one fitting job): ``make_renderer(..., differentiable=True)``, the
 L2 loss, ``backward()``, Adam, the projection onto [0, 1] and
 ``loss.item()``, the loop of the program's ``optim.fit_scene``.
+``fit_ranks`` (one fitting job over one process per card): this process's
+rank of ``parallel.mesh.make_train_step``'s all-reduced step, its
+gradients put in the leaves' ``.grad``, then Adam, the projection and
+``loss.item()``: ``parallel.launch.fit_distributed``'s loop with
+``fit_scene``'s projection (``perfbench/ranks.py`` runs the processes).
 
 This is the one module that imports the program, and only its entry
 points: ``volym_tpu_torch.render.renderer.make_renderer``, ``Scene``,
-``CameraMatrices``, ``RenderParams`` and ``optim.l2_image_loss``.
+``CameraMatrices``, ``RenderParams``, ``optim.l2_image_loss``,
+``parallel.launch.maybe_initialize`` and ``local_device``, and
+``parallel.mesh.make_host_mesh`` and ``make_train_step``.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -136,11 +145,11 @@ class ViewJob(Job):
 
 
 class FitJob(Job):
+    #: whether the program's step yields its frame (``image_gap`` compares it)
+    frames = True
+
     def __init__(self, cfg, mix, seed, device, backend):
         super().__init__(cfg, mix, seed, device, backend)
-        from volym_tpu_torch.render import renderer
-        from volym_tpu_torch.scene import Scene
-
         # the targets: the reference's frames of the true scene from each view
         self.targets = [
             reference.render(self.volume, self.importance, self.lut, self.matrices(k), self.ref_params,
@@ -155,10 +164,7 @@ class FitJob(Job):
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
         self.leaves = {k: self.start[k].detach().clone().requires_grad_() for k in mix["leaves"]}
-        frozen = {"volume": self.volume, "importance": self.importance, "tf_lut": self.lut}
-        frozen.update(self.leaves)
-        self.render = renderer.make_renderer(Scene(**frozen), self.params, self.height, self.width, backend=backend,
-                                             device=self.device, differentiable=True)
+        self.render = self._program()
         self.opt = torch.optim.Adam(list(self.leaves.values()), lr=float(mix["learning_rate"]))
         self.first: dict = {}
         self._reference: dict = {}
@@ -166,6 +172,16 @@ class FitJob(Job):
         self.checked = traffic.sample_indices(seed + 3, 1, WINDOW_BELOW - 1)[0] + 1
         self.window: dict = {"losses": []}
         self.kept_up_to = -1
+
+    def _program(self):
+        """The program's differentiable renderer of the scene with the leaves."""
+        from volym_tpu_torch.render import renderer
+        from volym_tpu_torch.scene import Scene
+
+        frozen = {"volume": self.volume, "importance": self.importance, "tf_lut": self.lut}
+        frozen.update(self.leaves)
+        return renderer.make_renderer(Scene(**frozen), self.params, self.height, self.width, backend=self.backend,
+                                      device=self.device, differentiable=True)
 
     def _step(self, i: int):
         from volym_tpu_torch import optim
@@ -189,7 +205,8 @@ class FitJob(Job):
         for s in range(FIT_CHECKED_STEPS):
             losses.append(self._step(s).item())
             if s == 0:  # the frame, and the first gradient as Adam holds it; none where it took no step
-                self.first["image"] = self.image.clone()
+                if self.frames:
+                    self.first["image"] = self.image.clone()
                 beta1 = self.opt.param_groups[0]["betas"][0]
                 self.first["grad"] = {
                     k: self.opt.state[v]["exp_avg"] / (1.0 - beta1) if "exp_avg" in self.opt.state[v]
@@ -198,8 +215,11 @@ class FitJob(Job):
         self.first["change"] = {k: v.detach() - before[k] for k, v in self.leaves.items()}
         del before
         self.offset = FIT_CHECKED_STEPS
+        self.round_s = []  # each step's seconds in the round of every view
         for s in range(len(self.views)):
+            t = time.perf_counter()
             self.sync(self._step(self.offset + s))
+            self.round_s.append(time.perf_counter() - t)
         self.offset += len(self.views)
 
     def issue(self, i: int):
@@ -227,7 +247,8 @@ class FitJob(Job):
             w["losses"].append(loss.item())
             if i == j:
                 w["exp_avg_after"] = self._adam("exp_avg")
-                w["image"] = self.image.clone()
+                if self.frames:
+                    w["image"] = self.image.clone()
             if i == j + WINDOW_STEPS - 1:
                 w["after"] = {k: v.detach().clone() for k, v in self.leaves.items()}
         self.kept_up_to = i
@@ -248,19 +269,21 @@ class FitJob(Job):
 
     def numbers(self, dtype=torch.float32, program=None) -> dict[str, float]:
         """The first steps and the checked window steps against the
-        reference's, and the frames of the first step and of the first
-        checked window step (``image_gap``, the largest gap of any entry);
+        reference's, and, where the program's step yields its frame
+        (``frames``), the frames of the first step and of the first checked
+        window step (``image_gap``, the largest gap of any entry);
         ``program``: a dtype in which the reference takes the program's place
         (the control)."""
         want = self.reference_steps(torch.float32)
         got = self.first if program is None else self.reference_steps(program)
         out = check.fit_numbers(got, want)
-        images = [(got["image"], want["image"])]
+        images = [(got.get("image"), want["image"])]
         want = self.reference_window(torch.float32)
         got = self.program_window() if program is None else self.reference_window(program)
         out.update({f"window_{k}": v for k, v in check.fit_numbers(got, want).items()})
-        images.append((got["image"], want["image"]))
-        out["image_gap"] = check.frame_numbers(*zip(*images))["frame_gap_max"]
+        images.append((got.get("image"), want["image"]))
+        if self.frames:
+            out["image_gap"] = check.frame_numbers(*zip(*images))["frame_gap_max"]
         if program is None:  # how the work drifts from the start to the checked window step
             self.work_notes = {"work_first_step": self.reference_steps(torch.float32)["counts"],
                                f"work_window_step_{self.checked}": want["counts"]}
@@ -272,7 +295,7 @@ class FitJob(Job):
         beta1) and the leaves' change."""
         w, beta1 = self.window, self.window["beta1"]
         grad = {k: (w["exp_avg_after"][k] - beta1 * w["exp_avg"][k]) / (1.0 - beta1) for k in w["before"]}
-        return {"losses": w["losses"], "grad": grad, "image": w["image"],
+        return {"losses": w["losses"], "grad": grad, "image": w.get("image"),
                 "change": {k: w["after"][k] - w["before"][k] for k in w["before"]}}
 
     def reference_window(self, dtype, rows_per_block: int = 256) -> dict:
@@ -333,4 +356,90 @@ class FitJob(Job):
         return counts
 
 
-JOBS = {"view": ViewJob, "fit": FitJob}
+class RanksFitJob(FitJob):
+    """One rank of a fitting job over ``world`` processes, one a card: this
+    process's part of ``make_train_step``'s step (its ``world``-th of the
+    frame's pixel rows marched, the gradients all-reduced), then Adam and the
+    projection, the same on every rank.  The step yields no frame, so the
+    checks are the fit's without ``image_gap``.
+
+    ``rank``, ``world``, ``coordinator`` ("host:port" of rank 0's store):
+    the process group's layout, brought up through the program's
+    ``maybe_initialize`` from the ``VOLYM_*`` variables; ``device`` "cuda"
+    runs NCCL on card ``rank``, "cpu" gloo."""
+
+    frames = False
+
+    def __init__(self, cfg, mix, seed, device, backend, rank: int = 0, world: int = 1, coordinator: str = ""):
+        from volym_tpu_torch.parallel import launch
+
+        self.rank, self.world = rank, world
+        env = {launch.ENV_COORDINATOR: coordinator, launch.ENV_NUM_PROCESSES: str(world),
+               launch.ENV_PROCESS_ID: str(rank)}
+        if int(cfg["height"]) % world:
+            raise ValueError(f"{cfg['height']} pixel rows do not split into {world} shards of whole rows")
+        self.timeout = launch.DEFAULT_TIMEOUT
+        launch.maybe_initialize(True, device=device, env=env, timeout=self.timeout)
+        super().__init__(cfg, mix, seed, launch.local_device(), backend)
+
+    def inputs(self) -> list[torch.Tensor]:
+        """What this rank made from the seed: the volumes, the LUT, the
+        targets and the start."""
+        return [self.volume, self.importance, self.volume_u8, self.lut, *self.targets, self.start["volume"]]
+
+    def _program(self):
+        """One train step per view: each fixes its march axis from the camera
+        it is built with."""
+        from volym_tpu_torch.parallel import mesh
+
+        m = mesh.make_host_mesh([self.device])
+        return [mesh.make_train_step(self.params, self.height, self.width, m, backend=self.backend,
+                                     camera_matrices=self.port_matrices(self.matrices(v)))
+                for v in range(len(self.views))]
+
+    def _step(self, i: int):
+        from volym_tpu_torch.scene import Scene
+
+        v = i % len(self.views)
+        scene = Scene(volume=self.leaves["volume"].detach(), importance=self.importance,
+                      tf_lut=self.leaves["tf_lut"].detach())
+        loss, grads = self.render[v](scene, self.port_matrices(self.matrices(i)), self.targets[v])
+        for k, leaf in self.leaves.items():
+            leaf.grad = getattr(grads, k)
+        self.opt.step()
+        with torch.no_grad():
+            for leaf in self.leaves.values():
+                leaf.clamp_(0.0, 1.0)
+        return loss
+
+    def rows(self) -> tuple[int, int]:
+        """This rank's pixel rows of the frame, as the mesh's shards cut them."""
+        per = self.height // self.world
+        return self.rank * per, (self.rank + 1) * per
+
+    def work_counts(self, i: int, state: dict) -> dict | None:
+        """The plain reference's step counts of step i's forward over this
+        rank's rows, on the volume and LUT the step received; rank 0's
+        alone (the per-layer metrics read rank 0's trace)."""
+        if self.rank != 0:
+            return None
+        p, cam = self.ref_params, self.matrices(self.offset + i)
+        r0, r1 = self.rows()
+        with torch.no_grad():
+            g = reference.grids(state["volume"].float(), self.importance, p, cam["view"])
+            camt = reference.cam_tensors(cam, self.device)
+            ndc = reference.pixel_ndc(self.height, self.width, self.device)[r0 * self.width:r1 * self.width]
+            f = reference.ray_table(camt, ndc, g, g.vol.shape[1])
+            counts: dict[str, int] = {}
+            gate = None
+            if p.use_importance_rendering:
+                cone = reference.cone_table(camt, ndc, g, g.vol.shape[1]) if p.use_cone_importance_check else None
+                gate, gc = reference.lookahead_gate(f, cone, g.levels, g.sign, p.subtexel_bits)
+                counts.update(gc)
+            _, mc = reference.march(f, g, state["tf_lut"], p, gate)
+            for k, v in mc.items():
+                counts[k] = counts.get(k, 0) + v
+        return {k: int(v) for k, v in counts.items()}
+
+
+JOBS = {"view": ViewJob, "fit": FitJob, "fit_ranks": RanksFitJob}

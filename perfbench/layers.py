@@ -21,6 +21,8 @@ class Context:
     work: dict[int, dict] = field(default_factory=dict)  # analysed item -> the reference's step counts
     peak_window_bytes: int = 0
     notes: dict = field(default_factory=dict)  # what a reader reports beside its number
+    ranks: int = 1  # the processes, one a card, whose collectives the items run
+    peers: list = field(default_factory=list)  # ranks 1.., each (its traced device operations, its items)
 
 
 def item_kernel_us(ctx: Context, patterns: list[str] | None, exclude: list[str] | None = None) -> list[float]:
@@ -95,3 +97,57 @@ def mfu_pct(ctx: Context, kinds: list[str]) -> float | None:
                 continue
     wall = sum(ctx.items[i][1] - ctx.items[i][0] for i in ctx.work) / 1e6
     return 100.0 * ops / (wall * work.F32_OPS_PER_S)
+
+
+def exposed_ms(ctx: Context, patterns: list[str]) -> float | None:
+    """The mean device ms per item in which an operation matching
+    ``patterns`` runs and no other operation does (the union of the first
+    less the union of the rest); None where none of them ran."""
+    if ctx.trace is None or not ctx.items:
+        return None
+    out, seen = [], False
+    for lo, hi in ctx.items:
+        ops = [(n, s, e) for n, s, e in ctx.trace.device if e > lo and s < hi]
+        mine = trace.merge(trace.clip([(s, e) for n, s, e in ops if trace.matches(n, patterns)], lo, hi))
+        seen = seen or bool(mine)
+        rest = trace.merge(trace.clip([(s, e) for n, s, e in ops if not trace.matches(n, patterns)], lo, hi))
+        out.append(sum(e - s for s, e in mine) - overlap_us(mine, rest))
+    return sum(out) / len(out) / 1e3 if seen else None
+
+
+def collective_us(device, items, patterns: list[str]) -> list[list[float]]:
+    """Per item, the device us of each operation matching ``patterns`` that
+    starts in it, in the order they start."""
+    return [[e - s for n, s, e in sorted(device, key=lambda op: op[1]) if lo <= s < hi and trace.matches(n, patterns)]
+            for lo, hi in items]
+
+
+def transfer_ms(ctx: Context, patterns: list[str]) -> float | None:
+    """The mean device ms per item that the collectives matching
+    ``patterns`` take to move their data: each collective's shortest kernel
+    over the ranks (the last rank to reach a collective waits for no other),
+    summed over the item.  None without peers or such collectives, or where
+    the ranks' traces do not hold the same collectives."""
+    if ctx.trace is None or not ctx.items or not ctx.peers:
+        return None
+    ranks = [collective_us(ctx.trace.device, ctx.items, patterns)]
+    ranks += [collective_us(device, items, patterns) for device, items in ctx.peers]
+    shape = [len(k) for k in ranks[0]]
+    if not any(shape) or any([len(k) for k in r] != shape for r in ranks):
+        return None
+    per_item = [sum(min(durations) for durations in zip(*(r[i] for r in ranks))) for i in range(len(shape))]
+    return sum(per_item) / len(per_item) / 1e3
+
+
+def overlap_us(a: list[tuple[float, float]], b: list[tuple[float, float]]) -> float:
+    """The length of the intersection of two merged, sorted interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total

@@ -12,7 +12,9 @@ standard output is one JSON object: ``correct``, ``attempted``,
 and last ``checks``, each compared number beside its limit; standard error
 ends with the same numbers and limits.  Without CUDA, or with fewer cards
 than the cell asks for, it exits 2 and prints no result; so it does if JAX
-or the JAX package is loaded when the result is due.
+or the JAX package is loaded when the result is due.  A cell whose mix runs
+one process per card (``fit_ranks``) starts its other ranks as this script
+with a hidden ``--worker`` argument (``perfbench/ranks.py``).
 """
 
 from __future__ import annotations
@@ -89,21 +91,100 @@ def traced_segment(job, loop: str, n_items: int):
     return tr, items, work
 
 
+def per_layer(cell, ctx) -> tuple[dict, dict | None, dict]:
+    """A traced run's per-layer metrics that found something to read, its
+    breakdown and the device's busy and traced seconds (none without a
+    device trace)."""
+    from perfbench import spec
+    from perfbench import trace as trace_mod
+
+    metrics, breakdown, device_extra = {}, None, {}
+    for m in cell.per_layer:
+        value = spec.load_reader(m["name"])(ctx)
+        if value is not None:
+            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    if ctx.trace is not None and ctx.items:
+        lo, hi = ctx.items[0][0], ctx.items[-1][1]
+        device_extra = {"busy_s": trace_mod.busy_us(ctx.trace, lo, hi) / 1e6, "window_s": (hi - lo) / 1e6}
+        breakdown = {"device_ops": trace_mod.top_device_ops(ctx.trace, lo, hi),
+                     "idle_gaps": trace_mod.idle_gaps(ctx.trace, lo, hi)}
+    return metrics, breakdown, device_extra
+
+
+def end_to_end(cell, setup_s: float, win) -> dict:
+    e2e = {"setup_s": setup_s, "frame_ms": win.per_item_ms(), "step_ms": win.per_item_ms(),
+           "frame_p95_ms": win.p95_ms()}
+    return {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]} for m in cell.end_to_end}
+
+
+def result_line(correct: bool, checks: dict, attempted: int, metrics: dict, dev, count: int, peak: int,
+                device_extra: dict, breakdown: dict | None) -> dict:
+    """The result object, its keys in the order the line prints them."""
+    import torch
+
+    on_card = dev.type == "cuda"
+    result = {
+        "correct": correct,
+        "attempted": attempted,
+        "failed": sum(1 for c in checks.values() if c["limit"] is None or not c["value"] <= c["limit"]),
+        "metrics": metrics,
+        "device": {
+            "platform": "gpu" if on_card else dev.type,
+            "kind": torch.cuda.get_device_name(dev) if on_card else "cpu",
+            "count": count,
+            "memory_peak_bytes": int(peak),
+            **device_extra,
+        },
+    }
+    if breakdown is not None:
+        result["breakdown"] = breakdown
+    result["checks"] = checks
+    return result
+
+
+def finish(job, cell, win, metrics: dict, breakdown: dict | None, device_extra: dict, notes: dict, count: int,
+           peak: int, numbers: dict | None = None) -> tuple[dict, dict]:
+    """The end of a run, once its window and traced segment are over: the
+    program's state freed, what it produced compared with the reference
+    (``numbers`` joins the job's own), the result object and the notes: the
+    mean latency of each tenth of the window, the reference's step counts
+    where the job records them, the card's power limit."""
+    import torch
+
+    from perfbench import check, stats
+
+    on_card = job.device.type == "cuda"
+    job.release()
+    if on_card:
+        torch.cuda.empty_cache()
+    got = job.numbers()
+    got.update(numbers or {})
+    correct, checks = check.judge(got, cell.limits)
+    result = result_line(correct, checks, win.count, metrics, job.device, count, peak, device_extra, breakdown)
+    notes["window_tenths_ms"] = stats.tenths_ms(win.latencies)
+    notes.update(getattr(job, "work_notes", {}))
+    notes["power_limit"] = power_limit() if on_card else "none"
+    return result, notes
+
+
 def run_cell(name: str, seed: int, seconds: float, traced: bool, device: str = "cuda", backend: str = "slab_cuda",
              overrides: dict | None = None, root: Path = ROOT, t0: float | None = None) -> tuple[dict, dict]:
     """One run of the cell ``name``; -> (the result object, notes for
-    standard error: each roofline's bounding rate, the card's power limit,
-    the mean latency of each tenth of the window, the reference's step
-    counts where the job records them).
-    ``overrides`` (tests on the CPU) replaces entries of the configuration."""
+    standard error: each roofline's bounding rate and what :func:`finish`
+    adds).  ``overrides`` (tests on the CPU) replaces entries of the
+    configuration.  A ``fit_ranks`` cell runs through ``ranks.run_cell``."""
     import torch
 
-    from perfbench import cells, check, layers, spec, stats
+    from perfbench import cells, layers, spec, stats
 
     t0 = T0 if t0 is None else t0
     cell = spec.load_cell(name, root)
     cfg = dict(cell.config, **(overrides or {}))
     loop = cell.traffic["loop"]
+    if loop == "fit_ranks":
+        from perfbench import ranks
+
+        return ranks.run_cell(cell, cfg, seed, seconds, traced, device, backend, t0, overrides=overrides)
     job = cells.JOBS[loop](cfg, cell.traffic, seed, device, backend)
     job.warm_up()
     dev = job.device
@@ -126,50 +207,12 @@ def run_cell(name: str, seed: int, seconds: float, traced: bool, device: str = "
         tr, items, work = traced_segment(job, loop, TRACE_ITEMS[loop])
         ctx = layers.Context(cfg=cfg, planes=job.planes(), window=win, trace=tr if on_card else None,
                              items=items, work=work, peak_window_bytes=window_peak)
-        for m in cell.per_layer:
-            value = spec.load_reader(m["name"])(ctx)
-            if value is not None:
-                result_metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-        if ctx.trace is not None and items:
-            lo, hi = items[0][0], items[-1][1]
-            from perfbench import trace as trace_mod
-
-            device_extra = {"busy_s": trace_mod.busy_us(tr, lo, hi) / 1e6, "window_s": (hi - lo) / 1e6}
-            breakdown = {"device_ops": trace_mod.top_device_ops(tr, lo, hi),
-                         "idle_gaps": trace_mod.idle_gaps(tr, lo, hi)}
+        result_metrics, breakdown, device_extra = per_layer(cell, ctx)
         notes = ctx.notes
     else:
-        e2e = {"setup_s": setup_s, "frame_ms": win.per_item_ms(), "step_ms": win.per_item_ms(),
-               "frame_p95_ms": win.p95_ms()}
-        for m in cell.end_to_end:
-            result_metrics[m["name"]] = {"value": e2e[m["name"]], "unit": m["unit"]}
+        result_metrics = end_to_end(cell, setup_s, win)
         notes = {}
-
-    job.release()
-    if on_card:
-        torch.cuda.empty_cache()
-    numbers = job.numbers()
-    correct, checks = check.judge(numbers, cell.limits)
-    result = {
-        "correct": correct,
-        "attempted": win.count,
-        "failed": sum(1 for c in checks.values() if c["limit"] is None or not c["value"] <= c["limit"]),
-        "metrics": result_metrics,
-        "device": {
-            "platform": "gpu" if on_card else dev.type,
-            "kind": torch.cuda.get_device_name(dev) if on_card else "cpu",
-            "count": cell.chips,
-            "memory_peak_bytes": int(peak),
-            **device_extra,
-        },
-    }
-    if breakdown is not None:
-        result["breakdown"] = breakdown
-    result["checks"] = checks
-    notes["window_tenths_ms"] = stats.tenths_ms(win.latencies)
-    notes.update(getattr(job, "work_notes", {}))
-    notes["power_limit"] = power_limit() if on_card else "none"
-    return result, notes
+    return finish(job, cell, win, result_metrics, breakdown, device_extra, notes, cell.chips, peak)
 
 
 def main(argv=None) -> int:
@@ -178,12 +221,23 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    ap.add_argument("--worker", help=argparse.SUPPRESS)  # a fit_ranks cell's rank > 0, from rank 0
     args = ap.parse_args(argv)
     os.environ.setdefault("USE_FLAX", "0")
 
     import torch
 
     from perfbench import spec
+
+    if args.worker is not None:
+        from perfbench import ranks
+
+        ranks.worker_main(args.workload, args.seed, args.seconds, bool(args.trace), json.loads(args.worker), ROOT)
+        found = forbidden_modules()
+        if found:
+            print(f"perfbench: a worker loaded {', '.join(found)}: JAX or the JAX package", file=sys.stderr)
+            return 2
+        return 0
 
     try:
         cell = spec.load_cell(args.workload, ROOT)

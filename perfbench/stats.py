@@ -55,11 +55,12 @@ def tenths_ms(latencies: list[float]) -> list[float]:
     return [round(statistics.fmean(p) * 1e3, 4) for p in parts if p]
 
 
-def run_window(issue, sync, seconds: float, keep=None, clock=time.perf_counter) -> Window:
-    """Issue items 0, 1, ... until ``seconds`` have passed: ``issue(i)``
-    returns the item's output, ``sync(out)`` waits until it is done; no item
-    is issued before the previous one is synchronised.  ``keep(i, out)``,
-    when given, runs after the sync and outside the item's latency."""
+def run_window(issue, sync, seconds: float, keep=None, clock=time.perf_counter, count: int | None = None) -> Window:
+    """Issue items 0, 1, ... until ``seconds`` have passed, or, where
+    ``count`` is given, exactly ``count`` items: ``issue(i)`` returns the
+    item's output, ``sync(out)`` waits until it is done; no item is issued
+    before the previous one is synchronised.  ``keep(i, out)``, when given,
+    runs after the sync and outside the item's latency."""
     w = Window(start=clock())
     i = 0
     while True:
@@ -74,6 +75,5 @@ def run_window(issue, sync, seconds: float, keep=None, clock=time.perf_counter) 
         if keep is not None:
             keep(i, out)
         i += 1
-        if t2 - w.start >= seconds:
+        if (i >= count) if count is not None else (t2 - w.start >= seconds):
             return w
-

@@ -5,7 +5,7 @@ not correct.  On the CPU at a tiny size, the card's look skipped."""
 import pytest
 import torch
 
-from conftest import tiny
+from conftest import RANKS_CELL, ranks_run, tiny
 from perfbench import calibrate, cells, check, run, spec
 
 SEED = 2**31 + 99
@@ -111,3 +111,23 @@ def test_the_bfloat16_control_comes_out_not_correct(root, name):
     reading = calibrate.one(cell, SEED, 0.1, None, "cpu", "slab", tiny(cell, side=24, width=24, height=16))
     assert check.judge(reading["numbers"], cell.limits)[0] is True
     assert check.judge(reading["control"], cell.limits)[0] is False
+
+
+@pytest.mark.parametrize("fault", ["skip", "half", "stale"])
+def test_ranks_faults_come_out_not_correct(root, fault):
+    """Over 2 gloo ranks: the last rank steps on its own rows' volume
+    gradient (the exchange left out), the upper half of the ranks leave their
+    rows out (the mean taken over the rest), the optimizer skips its update."""
+    proc, out = ranks_run(root, 2, fault=fault)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert out["result"]["correct"] is False and out["result"]["failed"] >= 1
+    if fault == "stale":
+        assert out["result"]["checks"]["change_gap"]["value"] == pytest.approx(1.0)
+
+
+def test_the_ranks_bfloat16_control_comes_out_not_correct(root):
+    proc, out = ranks_run(root, 2, control=True)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    limits = spec.load_cell(RANKS_CELL, root).limits
+    assert out["result"]["correct"] is True
+    assert check.judge(out["notes"]["control"], limits)[0] is False

@@ -4,7 +4,7 @@ import json
 
 import pytest
 
-from perfbench import spec
+from perfbench import cells, spec
 
 
 def test_every_cell_loads(root):
@@ -12,7 +12,7 @@ def test_every_cell_loads(root):
     for w in bench["workloads"]:
         cell = spec.load_cell(w["name"], root)
         assert cell.config["name"] == w["config"]
-        assert cell.traffic["loop"] in ("view", "fit")
+        assert cell.traffic["loop"] in cells.JOBS
         assert {m["name"] for m in cell.end_to_end} >= {"setup_s"}
         assert cell.per_layer and cell.limits
         for m in cell.per_layer:

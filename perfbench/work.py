@@ -22,6 +22,8 @@ from __future__ import annotations
 #: published peaks of one NVIDIA H100 SXM (dense, at its 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: NVLink 4 of one H100 SXM, one direction: 18 links at 25 GB/s
+NVLINK_BYTES_PER_S = 450e9
 
 #: per live step of the march: the step's coordinates (2 x 2 affine, 2
 #: clamps, 2 x 3 snap) and t (2), the window and termination tests (3)
@@ -110,6 +112,20 @@ def gate(cfg: dict, planes: int, counts: dict) -> tuple[float, float]:
     directions = CONE_DIRECTIONS if cfg["params"].get("use_cone_importance_check") else 1
     ops = counts["valid_steps"] * GATE_VALID_OPS + counts["probed_steps"] * directions * GATE_PROBE_OPS
     return n_bytes, ops
+
+
+def allreduce_bytes(cfg: dict, lut_entries: int = 256) -> int:
+    """The bytes a fitting step must sum across its ranks: the cotangents of
+    its leaves (the volume's, the LUT's) and the loss; never what else a
+    program may send along."""
+    side = int(cfg["volume"]["side"])
+    return side**3 * F32 + lut_entries * 4 * F32 + F32
+
+
+def bus_bytes(n_bytes: float, ranks: int) -> float:
+    """The bytes an all-reduce of ``n_bytes`` moves through each card's link
+    by the bus-bandwidth convention of NCCL's tests: 2 (n - 1) / n of it."""
+    return n_bytes * 2.0 * (ranks - 1) / ranks
 
 
 WORK = {"march": march, "replay": replay, "fold": fold, "gate": gate}
